@@ -8,14 +8,22 @@ traceback, and a watchdog turns a hang into the same:
   0. require a CUDA card; print nvidia-smi's name and power limit;
   1. build the kernels from plo_tpu_torch/csrc with the one nvcc call and
      print the build time and ptxas's register / shared-memory lines;
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (cylinder_stats with and without t_live, fps_ranks),
-     timed with CUDA events (median of 15 runs after a warm-up);
-  3. the main path: 5 synthetic HDL-64 x 900 frames through
-     Odometry.process_scan at capacity 131072 with the default config
-     (motion_prior=False, the reference-format setting); both kernels must
-     launch on frames 2-5, every pose must be finite and the ATE against the
-     ground truth below 0.1 m (the bound of tests/test_odometry.py).
+  2. each kernel against its plain PyTorch version on the card, at its
+     path's shapes (cylinder_stats with and without t_live, fps_ranks;
+     nearest and projected_argmin at plane-ICP's 2,000 queries against a
+     131,072-slot target, plus an all-invalid target and duplicated
+     targets), timed with CUDA events (median of 15 runs after a warm-up);
+  3-5. three paths, each 5 synthetic HDL-64 x 900 frames (one corridor
+     sequence) through Odometry.process_scan at capacity 131072, with every
+     launch count set to 0 just before the path and read just after:
+     3. the default config (motion_prior=False, the reference-format
+        setting): cylinder_stats and fps_ranks must launch on frames 2-5;
+     4. B1, configs/aloam_kitti00.json as shipped (plane-ICP, euclidean):
+        nearest must launch once per ICP iteration of frames 2-5;
+     5. B2, the same with plane_ICP.use_projected_distance enabled:
+        projected_argmin must launch once per ICP iteration;
+     on each, every pose must be finite and the ATE against the ground truth
+     below 0.1 m (the bound of tests/test_odometry.py).
 The second-to-last line is the kernels' JSON record; the last line, printed
 only when every phase passed, is {"ok": true, "device": {...}}.
 
@@ -35,11 +43,17 @@ N_FRAMES = 5
 N_SCANS, AZIMUTH_STEPS = 64, 900   # HDL-64 x 900
 CAPACITY = 131072                  # Odometry's default point capacity
 QUERIES = 12800                    # cylinder_stats queries: 64 bins x 200
+ICP_QUERIES = 2000                 # plane-ICP source: random.max_points of aloam_kitti00
 LIVE = 57600                       # valid filtered points of an HDL-64 x 900 scan
+ALOAM = "configs/aloam_kitti00.json"
+PICP_R, PICP_R_PROJ = 1.5, 0.8     # aloam_kitti00's plane_ICP r and r_proj
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, H100 SXM data sheet
 CYL_OPS_PER_PAIR = 22        # 3 sub, 3+3+2 mul, 2+2+1 add/sub, 2 compares, sqrt, add, count
 FPS_OPS_PER_SLOT_STEP = 12   # 3 sub, 3 mul, 2 add, min, compare, argmax compare + select
+NEAREST_OPS_PER_PAIR = 9     # 3 sub, 3 mul, 2 add, compare
+PROJ_OPS_PER_PAIR = 9        # d2 and its gate: 3 sub, 3 mul, 2 add, compare
+PROJ_OPS_PER_GATED_PAIR = 17  # where d2 passes: cross 6 mul 3 sub, p2 3 mul 2 add, 2 compares, select
 ATE_BOUND_M = 0.1
 
 
@@ -158,6 +172,91 @@ def phase_kernels(dev):
     records.append(dict(name="fps_ranks", route="cuda", source="plo_tpu_torch/csrc/fps_ranks.cu",
                         replaces="plo_tpu/ops/pallas_nn.py:344", max_abs_err=0.0, ms=ms,
                         plain_ms=plain_ms, **_bound(ops, nbytes), library_ms=None))
+    return records + phase_anchor_kernels(dev, g)
+
+
+def _anchor_inputs(dev, g):
+    """Plane-ICP's shapes: 2,000 queries among a 131,072-slot target whose
+    57,600 valid points (HDL-64 x 900) form the prefix — a ground plane with
+    relief and walls, so that normals point several ways. The last 4,000
+    valid points repeat the first 4,000 (exact ties), and 200 queries sit
+    on repeated points (d2 = 0 ties)."""
+    import torch
+    t_n, live, q_n = CAPACITY, LIVE, ICP_QUERIES
+    tgt = torch.zeros((t_n, 3), device=dev)
+    tgt[:live, :2] = torch.rand((live, 2), generator=g, device=dev) * 60.0 - 30.0
+    tgt[:live, 2] = -1.7 + 0.3 * torch.sin(tgt[:live, 0] / 3.0) + 0.02 * torch.randn(
+        live, generator=g, device=dev)
+    wall = torch.rand(live, generator=g, device=dev) < 0.3
+    tgt[:live, 1] = torch.where(wall, torch.sign(tgt[:live, 1]) * 8.0, tgt[:live, 1])
+    tgt[:live, 2] = torch.where(wall, tgt[:live, 2] + 4.0 * torch.rand(live, generator=g, device=dev),
+                                tgt[:live, 2])
+    tgt[live - 4000:live] = tgt[:4000]
+    valid = torch.arange(t_n, device=dev) < live
+    pick = torch.randint(0, live, (q_n,), generator=g, device=dev)
+    query = tgt[pick] + 0.2 * torch.randn((q_n, 3), generator=g, device=dev)
+    query[:200] = tgt[torch.randint(0, 4000, (200,), generator=g, device=dev)]
+    normal = torch.nn.functional.normalize(torch.randn((q_n, 3), generator=g, device=dev), dim=1)
+    return query.contiguous(), normal.contiguous(), tgt, valid
+
+
+def phase_anchor_kernels(dev, g):
+    """nearest and projected_argmin against their plain versions: idx and
+    valid exactly, d2 and proj bit-equal, on plane-ICP's shapes, an
+    all-invalid target and a 12-point target of duplicates."""
+    import torch
+    from plo_tpu_torch.ops import cuda_nn
+
+    query, normal, tgt, valid = _anchor_inputs(dev, g)
+    q_n, t_n = query.shape[0], tgt.shape[0]
+    eg = float(PICP_R * PICP_R)
+    none_valid = torch.zeros_like(valid)
+    dup = tgt[:4].repeat(3, 1).contiguous()   # ties across the whole target
+    cases = [("main", tgt, valid), ("all-invalid", tgt, none_valid),
+             ("duplicates", dup, torch.ones(12, dtype=torch.bool, device=dev))]
+    kernels = [
+        ("nearest", lambda t, v: cuda_nn.nearest(query, t, v, PICP_R),
+         lambda t, v: cuda_nn.nearest_plain(query, t, v, PICP_R)),
+        ("projected_argmin", lambda t, v: cuda_nn.projected_argmin(query, normal, t, v, eg, PICP_R_PROJ),
+         lambda t, v: cuda_nn.projected_argmin_plain(query, normal, t, v, eg, PICP_R_PROJ)),
+    ]
+    n_valid = int(valid.sum())
+    # Pairs that pass projected_argmin's d2 gate: only they need the cross product.
+    eg2 = cuda_nn.f32_square(eg)
+    gated = sum(int((((query[:, None, :] - tgt[None, s:s + 8192]) ** 2).sum(-1) < eg2)
+                    [:, valid[s:s + 8192]].sum()) for s in range(0, n_valid, 8192))
+    nbytes_in = q_n * 12 + t_n * 12 + t_n
+    records = []
+    for name, kern, plain in kernels:
+        for case, t, v in cases:
+            out, ref = kern(t, v), plain(t, v)
+            torch.cuda.synchronize()
+            for a, b, what in zip(out, ref, ("distance", "idx", "valid")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} ({case}): {what} differs from the plain version "
+                                         f"in {int((a != b).sum())} of {q_n}")
+            if case == "all-invalid" and not bool((out[1] == -1).all()):
+                raise AssertionError(f"{name}: an all-invalid target gave an index")
+            if case == "duplicates" and not bool((out[1] < 4).all()):
+                raise AssertionError(f"{name}: a tie did not go to the lowest index")
+            if case == "main":
+                found = int(out[2].sum())
+        ms = cuda_ms(lambda: kern(tgt, valid))
+        plain_ms = cuda_ms(lambda: plain(tgt, valid))
+        if name == "nearest":
+            ops = q_n * n_valid * NEAREST_OPS_PER_PAIR
+            nbytes = nbytes_in + q_n * 9
+        else:
+            ops = q_n * n_valid * PROJ_OPS_PER_PAIR + gated * PROJ_OPS_PER_GATED_PAIR
+            nbytes = nbytes_in + q_n * 12 + q_n * 9
+        print(f"{name}: Q={q_n} T={t_n} valid={n_valid}: equal to the plain version bit for bit "
+              f"(main: {found} found; all-invalid: none; duplicates: lowest index); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
+        records.append(dict(name=name, route="cuda", source=f"plo_tpu_torch/csrc/{name}.cu",
+                            replaces="plo_tpu/ops/pallas_nn.py:" + ("117" if name == "nearest" else "148"),
+                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **_bound(ops, nbytes),
+                            library_ms=None))
+    print(f"projected_argmin: {gated} of {q_n * n_valid} valid pairs pass the d2 gate", flush=True)
     return records
 
 
@@ -169,53 +268,65 @@ def _bound(ops, nbytes):
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
-def phase_main_path(dev):
-    """5 HDL-64 x 900 frames through the port's Odometry; returns the
-    kernels' launch counts of that run."""
+def make_sequence():
+    """5 HDL-64 x 900 frames of a structure-rich world: the identity-init
+    reference regime needs walls around the ground plane to pin x/y (as
+    tests/test_odometry.py's RANSAC/DRPM test)."""
+    from plo_tpu_torch.io import synthetic
+    t0 = time.perf_counter()
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, gt = synthetic.synthetic_sequence(N_FRAMES, n_scans=N_SCANS, azimuth_steps=AZIMUTH_STEPS,
+                                             speed=0.5, yaw_rate=0.01, seed=3, world=world)
+    print(f"sequence: {N_FRAMES} scans of {[len(s) for s in scans]} points "
+          f"generated in {time.perf_counter() - t0:.1f} s", flush=True)
+    return scans, gt
+
+
+def configs():
+    """The three paths' configs: default (motion_prior=False), B1, B2."""
+    from plo_tpu_torch.utils.profile_frames import build_config
+    aloam = os.path.join(os.path.dirname(os.path.abspath(__file__)), ALOAM)
+    return (build_config(None, False, N_SCANS, AZIMUTH_STEPS),
+            build_config(aloam, False, N_SCANS, AZIMUTH_STEPS),
+            build_config(aloam, True, N_SCANS, AZIMUTH_STEPS))
+
+
+def phase_path(dev, name, cfg, scans, gt, expect):
+    """One path: the frames through the port's Odometry, with every launch
+    count set to 0 just before and read just after; `expect(icp_iterations)`
+    gives the launch counts the path must show (icp_iterations: the sum over
+    frames 2-5). Returns the launch counts."""
     import numpy as np
     import torch
-    from plo_tpu_torch import config as cfgmod
-    from plo_tpu_torch.io import synthetic
     from plo_tpu_torch.models.odometry import Odometry
     from plo_tpu_torch.ops import cuda_nn
     from plo_tpu_torch.utils import evaluate
 
-    t0 = time.perf_counter()
-    # A structure-rich world: the identity-init reference regime needs walls
-    # around the ground plane to pin x/y (as tests/test_odometry.py's
-    # RANSAC/DRPM test).
-    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
-    scans, gt = synthetic.synthetic_sequence(N_FRAMES, n_scans=N_SCANS, azimuth_steps=AZIMUTH_STEPS,
-                                             speed=0.5, yaw_rate=0.01, seed=3, world=world)
-    print(f"main path: {N_FRAMES} scans of {[len(s) for s in scans]} points "
-          f"generated in {time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = cfgmod.Config(laser_odometry=cfgmod.LaserOdometryConfig(motion_prior=False),
-                        sensor=cfgmod.SensorConfig(n_scans=N_SCANS,
-                                                   azimuth_resolution=360.0 / AZIMUTH_STEPS))
     odo = Odometry(cfg, capacity=CAPACITY, seed=0, device=dev)
     torch.cuda.synchronize()
     cuda_nn.reset_launches()
     wall = time.perf_counter()
+    iters = []
     for s in scans:
         t = time.perf_counter()
         f = odo.process_scan(s)
         torch.cuda.synchronize()
-        print(f"  frame {f.index}: {1e3 * (time.perf_counter() - t):.1f} ms, "
+        iters.append(f.iterations)
+        print(f"  {name} frame {f.index}: {1e3 * (time.perf_counter() - t):.1f} ms, "
               f"{f.iterations} ICP iterations, {f.n_correspondences} correspondences, "
               f"{int(f.stats['n_sampled'])} sampled", flush=True)
     wall = time.perf_counter() - wall
     launches = dict(cuda_nn.LAUNCHES)
     est = odo.poses()
     if not np.isfinite(est).all():
-        raise AssertionError("non-finite pose")
+        raise AssertionError(f"{name}: non-finite pose")
     ate = evaluate.ate_rmse(est, np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt), align=False)
-    print(f"main path: {wall:.2f} s for {N_FRAMES} frames, ATE {ate:.4f} m, launches {launches}",
-          flush=True)
-    for name, n in launches.items():
-        if n < N_FRAMES - 1:
-            raise AssertionError(f"{name} launched {n} times over frames 2-{N_FRAMES}")
+    print(f"{name}: {wall:.2f} s for {N_FRAMES} frames, ATE {ate:.4f} m, "
+          f"ICP iterations {iters}, launches {launches}", flush=True)
+    if launches != expect(sum(iters[1:])):
+        raise AssertionError(f"{name}: launches {launches}, expected {expect(sum(iters[1:]))}")
     if not ate < ATE_BOUND_M:
-        raise AssertionError(f"ATE {ate} m >= {ATE_BOUND_M} m")
+        raise AssertionError(f"{name}: ATE {ate} m >= {ATE_BOUND_M} m")
     return launches
 
 
@@ -228,9 +339,21 @@ def main():
     phase_build()
     dev = torch.device("cuda")
     records = phase_kernels(dev)
-    launches = phase_main_path(dev)
+    scans, gt = make_sequence()
+    default, b1, b2 = configs()
+    zero = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
+    frames = N_FRAMES - 1  # frames 2-5 run ICP and major-axis sampling
+    by_path = {
+        "default": phase_path(dev, "default", default, scans, gt,
+                              lambda it: {**zero, "cylinder_stats": frames, "fps_ranks": frames}),
+        "B1": phase_path(dev, "B1", b1, scans, gt, lambda it: {**zero, "nearest": it}),
+        "B2": phase_path(dev, "B2", b2, scans, gt, lambda it: {**zero, "projected_argmin": it}),
+    }
+    main_path = {"nearest": "B1", "projected_argmin": "B2",
+                 "cylinder_stats": "default", "fps_ranks": "default"}
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = by_path[main_path[rec["name"]]][rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()}
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     faulthandler.cancel_dump_traceback_later()

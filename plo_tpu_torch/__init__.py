@@ -6,12 +6,16 @@ both the same inputs. This package imports torch and numpy only, never JAX and
 never `plo_tpu` (whose `__init__` imports JAX), so it runs on a GPU host that
 has no JAX installed.
 
-What the port covers: the default `Config()` pointcloud pipeline
-(preprocess -> PCA normals -> geometric-features presample -> normal /
-major-axis sampling) and the IMLS + RANSAC/DRPM ICP loop of
-`Odometry.process_scan` in target_mode="window". The two TPU kernels on that
-path (cylinder_stats, fps_ranks) are CUDA C++ kernels for sm_90a in csrc/,
-bound with ctypes in ops/cuda_nn.py.
+What the port covers, in `Odometry.process_scan` with target_mode="window":
+  * the pointcloud front-end: preprocess -> PCA normals -> geometric-features
+    or curvature presample -> normal, major-axis or random sampling;
+  * matching: euclidean IMLS, and plane-ICP in euclidean and projected mode;
+  * solving: RANSAC/DRPM, Ceres (Huber Gauss-Newton) and LS (trimmed).
+So the default `Config()` and the shipped configs/aloam_kitti00.json run,
+the latter also with plane_ICP.use_projected_distance enabled. The four TPU
+kernels of plo_tpu (nearest, projected_argmin, cylinder_stats, fps_ranks)
+are CUDA C++ kernels for sm_90a in csrc/, bound with ctypes in
+ops/cuda_nn.py. Options outside this list raise NotImplementedError.
 
 Entry points take an explicit `device`. `None` means the CUDA card and raises
 where there is none; the CPU runs only when a caller asks for it

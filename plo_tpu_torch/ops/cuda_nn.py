@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels of the per-frame path and their plain PyTorch
 versions — the counterpart of plo_tpu/ops/pallas_nn.py.
 
-  cylinder_stats  csrc/cylinder_stats.cu  replaces pallas_nn.cylinder_stats
-  fps_ranks       csrc/fps_ranks.cu       replaces pallas_nn.fps_ranks
+  nearest           csrc/nearest.cu           replaces pallas_nn.nearest
+  projected_argmin  csrc/projected_argmin.cu  replaces pallas_nn.projected_argmin
+  cylinder_stats    csrc/cylinder_stats.cu    replaces pallas_nn.cylinder_stats
+  fps_ranks         csrc/fps_ranks.cu         replaces pallas_nn.fps_ranks
 
-The sources have a plain C interface. `build()` compiles both with one
+The sources have a plain C interface. `build()` compiles all of them with one
 `nvcc` call into `_build/libplo_kernels.so` at first use (the directory is
 git-ignored), and ctypes loads it: pointers and the stream go over as
 `c_void_p`, and each C entry returns cudaGetLastError(), which the wrapper
@@ -26,19 +28,24 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("cylinder_stats.cu", "fps_ranks.cu")
+SOURCES = ("nearest.cu", "projected_argmin.cu", "cylinder_stats.cu", "fps_ranks.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libplo_kernels.so")
 
 # fps_ranks keeps a bin's x, y, z and min-d2 in shared memory (16 B a slot),
 # within the 48 KB a block gets without opting in to more.
 FPS_MAX_SLOTS = 3072
 
-LAUNCHES = {"cylinder_stats": 0, "fps_ranks": 0}
+LAUNCHES = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
+
+# Largest [Q, chunk] block one chunk of a plain search materializes (128 MB
+# of f32): PyTorch runs eagerly, so each elementwise step writes a block.
+_CHUNK_ELEMS = 1 << 25
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -95,6 +102,15 @@ def library() -> ctypes.CDLL:
                 build()
             lib = ctypes.CDLL(LIBRARY)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.plo_nearest_splits.argtypes = []
+            lib.plo_nearest_splits.restype = ci
+            lib.plo_nearest.argtypes = [vp, ci, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp]
+            lib.plo_nearest.restype = ci
+            lib.plo_projected_splits.argtypes = []
+            lib.plo_projected_splits.restype = ci
+            lib.plo_projected_argmin.argtypes = [vp, vp, ci, vp, vp, ci, cf, cf,
+                                                 vp, vp, vp, vp, vp, vp]
+            lib.plo_projected_argmin.restype = ci
             lib.plo_cylinder_splits.argtypes = []
             lib.plo_cylinder_splits.restype = ci
             lib.plo_cylinder_stats.argtypes = [vp, vp, ci, vp, vp, ci, vp, cf, cf,
@@ -120,6 +136,160 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def f32_square(x: float) -> float:
+    """x squared in float32 arithmetic, as XLA squares a traced f32 gate:
+    f32(0.8)**2 is 0.64000005 here, where a double square rounds to 0.64."""
+    x = np.float32(x)
+    return float(x * x)
+
+
+def chunk_size(q: int, t: int) -> int:
+    """Target chunk of a plain [Q, T] search: at most _CHUNK_ELEMS a block."""
+    return max(4096, min(t, _CHUNK_ELEMS // max(q, 1)))
+
+
+def _merge_min(best_v, best_i, cand, base: int):
+    """Fold one chunk's [Q, C] candidate values into the running (min, idx):
+    the chunk's first minimum, taken only when strictly smaller, so a tie
+    keeps the lower index (jnp.argmin and the scan merge of
+    plo_tpu/ops/neighbors.py)."""
+    cmin, carg = cand.min(dim=1)
+    take = cmin < best_v
+    return (torch.where(take, cmin, best_v),
+            torch.where(take, carg.to(torch.int32) + base, best_i))
+
+
+# ---------------------------------------------------------------------------
+# nearest
+# ---------------------------------------------------------------------------
+
+def nearest_plain(query, target, target_valid, radius: float = math.inf,
+                  chunk: Optional[int] = None):
+    """Plain PyTorch form of plo_tpu/ops/neighbors.py::_nearest_xla: per
+    query, the minimum coordinate-difference d2 = (dx*dx + dy*dy) + dz*dz
+    over valid targets and its index, chunked over the target. Returns
+    (d2 [Q] f32, idx [Q] i32, valid [Q] bool), valid = idx >= 0 &
+    d2 <= radius^2 (squared in f32)."""
+    q, t = query.shape[0], target.shape[0]
+    chunk = chunk_size(q, t) if chunk is None else chunk
+    best = torch.full((q,), math.inf, dtype=torch.float32, device=query.device)
+    best_idx = torch.full((q,), -1, dtype=torch.int32, device=query.device)
+    for base in range(0, t, chunk):
+        tc = target[base:base + chunk]
+        d2 = torch.zeros((q, tc.shape[0]), dtype=torch.float32, device=query.device)
+        for c in range(3):
+            diff = query[:, c:c + 1] - tc[None, :, c]
+            d2 = d2 + diff * diff
+        d2 = torch.where(target_valid[None, base:base + chunk], d2, math.inf)
+        best, best_idx = _merge_min(best, best_idx, d2, base)
+    return best, best_idx, (best_idx >= 0) & (best <= f32_square(radius))
+
+
+def nearest(query: torch.Tensor, target: torch.Tensor, target_valid: torch.Tensor,
+            radius: float = math.inf):
+    """k=1 nearest valid target (pallas_nn.nearest). query [Q, 3] f32;
+    target [T, 3] f32; target_valid [T] bool. Returns (d2 [Q] f32,
+    idx [Q] i32, -1 where no target is valid; valid [Q] bool)."""
+    if query.device.type == "cpu":
+        return nearest_plain(query, target, target_valid, radius)
+    dev = query.device
+    q, t = query.shape[0], target.shape[0]
+    _check("query", query, torch.float32, (q, 3), dev)
+    _check("target", target, torch.float32, (t, 3), dev)
+    _check("target_valid", target_valid, torch.bool, (t,), dev)
+    d2 = torch.empty(q, dtype=torch.float32, device=dev)
+    idx = torch.empty(q, dtype=torch.int32, device=dev)
+    valid = torch.empty(q, dtype=torch.bool, device=dev)
+    if q == 0:
+        return d2, idx, valid
+    lib = library()
+    splits = lib.plo_nearest_splits()
+    part_d2 = torch.empty((splits, q), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((splits, q), dtype=torch.int32, device=dev)
+    err = lib.plo_nearest(
+        query.data_ptr(), q, target.data_ptr(), target_valid.data_ptr(), t,
+        f32_square(radius), part_d2.data_ptr(), part_idx.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "nearest")
+    LAUNCHES["nearest"] += 1
+    return d2, idx, valid
+
+
+# ---------------------------------------------------------------------------
+# projected_argmin
+# ---------------------------------------------------------------------------
+
+def projected_p2(query, query_normal, tc, tvalid, euclid_gate2: float, proj_gate2: float):
+    """Gated squared projected distances [Q, C] of one target chunk, as
+    plo_tpu/ops/neighbors.py::projected_knn computes them: d = t - q,
+    c = d x n, p2 = (cx*cx + cy*cy) + cz*cz, +inf where the target is
+    invalid or fails d2 < euclid_gate2 or p2 < proj_gate2."""
+    nx, ny, nz = query_normal[:, 0:1], query_normal[:, 1:2], query_normal[:, 2:3]
+    dx = tc[None, :, 0] - query[:, 0:1]
+    dy = tc[None, :, 1] - query[:, 1:2]
+    dz = tc[None, :, 2] - query[:, 2:3]
+    cx = dy * nz - dz * ny
+    cy = dz * nx - dx * nz
+    cz = dx * ny - dy * nx
+    p2 = cx * cx + cy * cy + cz * cz
+    d2 = dx * dx + dy * dy + dz * dz
+    ok = tvalid[None, :] & (d2 < euclid_gate2) & (p2 < proj_gate2)
+    return torch.where(ok, p2, math.inf)
+
+
+def projected_argmin_plain(query, query_normal, target, target_valid, euclid_gate: float,
+                           proj_gate: float, chunk: Optional[int] = None):
+    """Plain PyTorch form of plo_tpu/ops/neighbors.py::projected_knn with
+    k=1, the path the JAX package runs for plane-ICP: both gates squared in
+    f32. Returns (proj [Q] f32 = sqrt(p2), idx [Q] i32, valid [Q] bool)."""
+    q, t = query.shape[0], target.shape[0]
+    chunk = chunk_size(q, t) if chunk is None else chunk
+    eg2, pg2 = f32_square(euclid_gate), f32_square(proj_gate)
+    best = torch.full((q,), math.inf, dtype=torch.float32, device=query.device)
+    best_idx = torch.full((q,), -1, dtype=torch.int32, device=query.device)
+    for base in range(0, t, chunk):
+        p2 = projected_p2(query, query_normal, target[base:base + chunk],
+                          target_valid[base:base + chunk], eg2, pg2)
+        best, best_idx = _merge_min(best, best_idx, p2, base)
+    valid = (best_idx >= 0) & torch.isfinite(best)
+    return torch.sqrt(torch.where(torch.isfinite(best), best, math.inf)), best_idx, valid
+
+
+def projected_argmin(query: torch.Tensor, query_normal: torch.Tensor, target: torch.Tensor,
+                     target_valid: torch.Tensor, euclid_gate: float, proj_gate: float):
+    """k=1 projected-distance anchor search (pallas_nn.projected_argmin):
+    argmin of |(t - q) x n|^2 over valid targets with |t - q|^2 <
+    euclid_gate^2 and the projected distance^2 < proj_gate^2, both gates
+    squared in f32 (the XLA path's rounding, not the Pallas kernel's double
+    square). Returns (proj [Q] f32, idx [Q] i32, valid [Q] bool)."""
+    if query.device.type == "cpu":
+        return projected_argmin_plain(query, query_normal, target, target_valid,
+                                      euclid_gate, proj_gate)
+    dev = query.device
+    q, t = query.shape[0], target.shape[0]
+    _check("query", query, torch.float32, (q, 3), dev)
+    _check("query_normal", query_normal, torch.float32, (q, 3), dev)
+    _check("target", target, torch.float32, (t, 3), dev)
+    _check("target_valid", target_valid, torch.bool, (t,), dev)
+    proj = torch.empty(q, dtype=torch.float32, device=dev)
+    idx = torch.empty(q, dtype=torch.int32, device=dev)
+    valid = torch.empty(q, dtype=torch.bool, device=dev)
+    if q == 0:
+        return proj, idx, valid
+    lib = library()
+    splits = lib.plo_projected_splits()
+    part_p2 = torch.empty((splits, q), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((splits, q), dtype=torch.int32, device=dev)
+    err = lib.plo_projected_argmin(
+        query.data_ptr(), query_normal.data_ptr(), q, target.data_ptr(),
+        target_valid.data_ptr(), t, f32_square(euclid_gate), f32_square(proj_gate),
+        part_p2.data_ptr(), part_idx.data_ptr(), proj.data_ptr(), idx.data_ptr(),
+        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "projected_argmin")
+    LAUNCHES["projected_argmin"] += 1
+    return proj, idx, valid
 
 
 # ---------------------------------------------------------------------------

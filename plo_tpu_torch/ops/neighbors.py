@@ -1,9 +1,14 @@
 """Neighbor searches (the port of plo_tpu/ops/neighbors.py): exact chunked
-kNN by coordinate differences and the azimuth-windowed adjacent-ring search.
+kNN by coordinate differences, the k=1 anchor searches of plane-ICP
+(`nearest`, `projected_argmin`), the projected-distance top-k and the
+azimuth-windowed adjacent-ring search.
 
-kNN stays plain PyTorch, as it is plain XLA (not Pallas) in the JAX package.
-plo_tpu's `gather_mask` (a bool gather routed through f32 for the TPU's
-sake) is a plain index here.
+kNN and projected_knn stay plain PyTorch, as they are plain XLA (not Pallas)
+in the JAX package. `nearest` and `projected_argmin` go through the CUDA
+kernels of ops/cuda_nn.py for tensors on the card, and through their plain
+versions there (the ports of `_nearest_xla` and `projected_knn(k=1)`) for
+tensors on the CPU. plo_tpu's `gather_mask` (a bool gather routed through
+f32 for the TPU's sake) is a plain index here.
 """
 from __future__ import annotations
 
@@ -12,12 +17,9 @@ from typing import Optional, Tuple
 
 import torch
 
-INF = math.inf
+from plo_tpu_torch.ops import cuda_nn
 
-# Largest [Q, chunk] distance block one chunk materializes (128 MB of f32):
-# PyTorch runs eagerly, so each elementwise step of the distance writes a
-# block of this size.
-_CHUNK_ELEMS = 1 << 25
+INF = math.inf
 
 
 def _pairwise_d2(query: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
@@ -42,7 +44,7 @@ def knn(query: torch.Tensor, target: torch.Tensor, target_valid: torch.Tensor,
     q, t = query.shape[0], target.shape[0]
     dev = query.device
     if chunk is None:
-        chunk = max(4096, min(t, _CHUNK_ELEMS // max(q, 1)))
+        chunk = cuda_nn.chunk_size(q, t)
     best_d2 = torch.full((q, k), INF, dtype=torch.float32, device=dev)
     best_idx = torch.full((q, k), -1, dtype=torch.int64, device=dev)
     for base in range(0, t, chunk):
@@ -56,6 +58,53 @@ def knn(query: torch.Tensor, target: torch.Tensor, target_valid: torch.Tensor,
         best_idx = torch.gather(cat_idx, 1, pos)
     valid = (best_idx >= 0) & (best_d2 <= radius * radius) & torch.isfinite(best_d2)
     return best_d2, best_idx, valid
+
+
+def nearest(query: torch.Tensor, target: torch.Tensor, target_valid: torch.Tensor,
+            radius: float = INF):
+    """k=1 NN (anchor search, imls_icp.cpp:597-610). Returns (d2, idx i32,
+    valid), each [Q]; idx is -1 where no target is valid."""
+    return cuda_nn.nearest(query, target, target_valid, radius)
+
+
+def projected_knn(query: torch.Tensor, query_normal: torch.Tensor, target: torch.Tensor,
+                  target_valid: torch.Tensor, k: int, euclid_gate: float, proj_gate: float,
+                  chunk: Optional[int] = None):
+    """Top-k smallest projected distances |(t - q) x n_q| subject to
+    |t - q| < euclid_gate and proj < proj_gate (imls_icp.cpp:341-364; the
+    plane_ICP variant at laser_odometry.cpp:316-334 passes its gates as
+    (r^2, r_proj)). Gates are squared in f32, as the JAX package's XLA scan
+    squares them. Returns (proj [Q, k] ascending, NOT squared; idx [Q, k]
+    i32; valid [Q, k])."""
+    q, t = query.shape[0], target.shape[0]
+    dev = query.device
+    if chunk is None:
+        chunk = cuda_nn.chunk_size(q, t)
+    eg2, pg2 = cuda_nn.f32_square(euclid_gate), cuda_nn.f32_square(proj_gate)
+    best_p2 = torch.full((q, k), INF, dtype=torch.float32, device=dev)
+    best_idx = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    for base in range(0, t, chunk):
+        tc = target[base:base + chunk]
+        p2 = cuda_nn.projected_p2(query, query_normal, tc, target_valid[base:base + chunk],
+                                  eg2, pg2)
+        pos = torch.arange(base, base + tc.shape[0], dtype=torch.int32, device=dev)
+        cat_p2 = torch.cat([best_p2, p2], dim=1)
+        cat_idx = torch.cat([best_idx, pos[None, :].expand(q, -1)], dim=1)
+        # A stable ascending sort keeps the earlier (lower-index) entry of a
+        # tie first, as lax.top_k does.
+        best_p2, order = torch.sort(cat_p2, dim=1, stable=True)
+        best_p2, order = best_p2[:, :k], order[:, :k]
+        best_idx = torch.gather(cat_idx, 1, order)
+    valid = (best_idx >= 0) & torch.isfinite(best_p2)
+    return torch.sqrt(torch.where(torch.isfinite(best_p2), best_p2, INF)), best_idx, valid
+
+
+def projected_argmin(query: torch.Tensor, query_normal: torch.Tensor, target: torch.Tensor,
+                     target_valid: torch.Tensor, euclid_gate: float, proj_gate: float):
+    """k=1 projected-distance anchor search (imls_icp.cpp:563-595).
+    Returns (proj [Q], idx [Q] i32, valid [Q])."""
+    return cuda_nn.projected_argmin(query, query_normal, target, target_valid,
+                                    euclid_gate, proj_gate)
 
 
 def ring_neighbor_search(query_xyz: torch.Tensor, query_ring: torch.Tensor,

@@ -25,6 +25,17 @@ def compact_indices(keep: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.
     return order[:size], valid
 
 
+def random_sampling(candidates: torch.Tensor, scores: torch.Tensor, max_points: int):
+    """Random subset of the candidate points (scan_registration.cpp:566-582):
+    the candidates in ascending order of their uniform [0, 1) `scores` (the
+    draw jax.random.uniform(key, (P,)) of plo_tpu's random_sampling), cut to
+    max_points; a stable sort, as jnp.argsort is, so ties keep index order.
+    Returns (idx [max_points], valid [max_points])."""
+    order = torch.argsort(torch.where(candidates, scores, math.inf), stable=True)
+    valid = torch.arange(max_points, device=candidates.device) < candidates.sum()
+    return order[:max_points], valid
+
+
 def spherical_bins(normals: torch.Tensor, azimuth_bins: int, elevation_bins: int) -> torch.Tensor:
     """Bin id of each normal direction (computeSphericalHistogram,
     scan_registration.cpp:536-564), in [0, Ab*Eb)."""

@@ -139,7 +139,14 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch, tmp_path):
         cuda_nn.cylinder_stats(m(8, 3), m(8, 3), m(64, 3), m(64, dtype=torch.bool), 1.5, 0.5)
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_nn.fps_ranks(m(4, 32, 3), m(4, 32), m((), dtype=torch.int32), 200)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_nn.nearest(m(8, 3), m(64, 3), m(64, dtype=torch.bool), 1.5)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_nn.projected_argmin(m(8, 3), m(8, 3), m(64, 3), m(64, dtype=torch.bool), 2.25, 0.8)
     with pytest.raises(TypeError):
         cuda_nn.cylinder_stats(m(8, 3), m(8, 3), m(64, 3), m(64), 1.5, 0.5)  # valid not bool
-    assert cuda_nn.LAUNCHES == {"cylinder_stats": 0, "fps_ranks": 0}
+    with pytest.raises(TypeError):
+        cuda_nn.nearest(m(8, 3), m(64, 3), m(64), 1.5)  # valid not bool
+    assert cuda_nn.LAUNCHES == {"nearest": 0, "projected_argmin": 0,
+                                "cylinder_stats": 0, "fps_ranks": 0}
     assert list(tmp_path.iterdir()) == []
