@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (plo_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, each printing its results; any failure exits non-zero with a
 traceback, and a watchdog turns a hang into the same:
@@ -12,7 +12,13 @@ traceback, and a watchdog turns a hang into the same:
      path's shapes (cylinder_stats with and without t_live, fps_ranks;
      nearest and projected_argmin at plane-ICP's 2,000 queries against a
      131,072-slot target, plus an all-invalid target and duplicated
-     targets), timed with CUDA events (median of 15 runs after a warm-up);
+     targets). Each kernel is timed three ways: `ms`, device time from one
+     pair of CUDA events around up to 50 back-to-back calls queued behind a
+     spin kernel (median of 7 runs); `call_ms`, one call between events
+     with the device idle before it, so the wrapper's host prelude counts;
+     `profiler_ms`, the kernels' own device time in a torch.profiler trace;
+  2b. knn on the card against knn on the CPU at the default path's IMLS
+     search, with exact ties inside and across chunks;
   3-5. three paths, each 5 synthetic HDL-64 x 900 frames (one corridor
      sequence) through Odometry.process_scan at capacity 131072, with every
      launch count set to 0 just before the path and read just after:
@@ -24,12 +30,18 @@ traceback, and a watchdog turns a hang into the same:
         projected_argmin must launch once per ICP iteration;
      on each, every pose must be finite and the ATE against the ground truth
      below 0.1 m (the bound of tests/test_odometry.py).
+With --baseline DIR (an older checkout, e.g. `git archive` of a parent
+commit unpacked into a git-ignored directory), each call that phases 2 and
+2b time (MAIN_CALLS) is also made with DIR's function of the same name and
+timed in turns with this tree's (DIR, this tree, this tree, DIR), and the
+rows where the two outputs differ are counted.
 The second-to-last line is the kernels' JSON record; the last line, printed
 only when every phase passed, is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and plo_tpu_torch only (never JAX or plo_tpu); writes
-nothing but the kernel build under plo_tpu_torch/_build/.
+nothing but the kernel builds under plo_tpu_torch/_build/ (and DIR's).
 """
+import argparse
 import faulthandler
 import json
 import os
@@ -49,16 +61,30 @@ ALOAM = "configs/aloam_kitti00.json"
 PICP_R, PICP_R_PROJ = 1.5, 0.8     # aloam_kitti00's plane_ICP r and r_proj
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, H100 SXM data sheet
-CYL_OPS_PER_PAIR = 22        # 3 sub, 3+3+2 mul, 2+2+1 add/sub, 2 compares, sqrt, add, count
+CYL_OPS_PER_PAIR = 9         # every pair: d2 (3 sub, 3 mul, 2 add) and its compare
+CYL_OPS_PER_GATED_PAIR = 13  # where d2 passes: d.n 3 mul 2 add, p2 2 mul 1 sub, compare, sqrt, add, count
 FPS_OPS_PER_SLOT_STEP = 12   # 3 sub, 3 mul, 2 add, min, compare, argmax compare + select
 NEAREST_OPS_PER_PAIR = 9     # 3 sub, 3 mul, 2 add, compare
 PROJ_OPS_PER_PAIR = 9        # d2 and its gate: 3 sub, 3 mul, 2 add, compare
 PROJ_OPS_PER_GATED_PAIR = 17  # where d2 passes: cross 6 mul 3 sub, p2 3 mul 2 add, 2 compares, select
+GATE_INSTR_PER_PAIR = 10     # lane-instructions a pair of the pair kernels issues at least:
+                             # d2 (3 sub, 3 mul, 2 add, unfused), its compare, the bit or
+                             # select it feeds
+H100_LANE_INSTR_PER_S = 132 * 128 * 1.98e9  # 132 SMs x 4 schedulers x 32 lanes at 1.98 GHz
+SPIN_CYCLES_PER_MS = 2.0e6   # torch.cuda._sleep cycles a millisecond, at most (1.98 GHz)
 ATE_BOUND_M = 0.1
 
+# The call of each function that phases 2 and 2b time, as label ->
+# (module under plo_tpu_torch/ops, function name, args, kwargs): what
+# --baseline times again with an older checkout's function of that name.
+MAIN_CALLS = {}
 
-def cuda_ms(fn, reps=15):
-    """Median milliseconds of fn() over `reps` runs after one warm-up."""
+
+def call_ms(fn, reps=15):
+    """Median milliseconds of one call of fn() between a pair of CUDA events,
+    the device idle before it, after one warm-up: the wrapper's host
+    prelude before its first launch counts, so this is an upper bound of the
+    device time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -71,6 +97,60 @@ def cuda_ms(fn, reps=15):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms(fn, runs=7):
+    """Device milliseconds per call of fn(): one pair of CUDA events around
+    N back-to-back calls (N up to 50, about 20 ms of work), divided by N;
+    the median over `runs` such runs, after a warm-up. Each run first queues
+    a spin kernel long enough for the host to enqueue all N calls behind it,
+    so the calls run back to back on the device and the host's time between
+    launches is not counted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    n = max(1, min(50, int(20.0 / max(wall_ms, 1e-3))))
+    spin_cycles = int(min(1.5 * n * wall_ms + 0.5, 300.0) * SPIN_CYCLES_PER_MS)
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def profiler_ms(fn, kernels, calls=10):
+    """Device milliseconds per call of fn() that torch.profiler attributes to
+    the named CUDA kernels (substrings of their names), or None where the
+    trace holds no device event of them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = [e.time_range.elapsed_us() for e in dev_events if any(k in e.name for k in kernels)]
+    if not us:
+        print(f"  profiler: no device event named {kernels} among "
+              f"{sorted({e.name[:80] for e in dev_events})[:6]}", flush=True)
+    return sum(us) / 1e3 / calls if us else None
+
+
+def timings(fn, kernels):
+    """cuda_ms, call_ms and profiler_ms of one wrapper."""
+    return dict(ms=cuda_ms(fn), call_ms=call_ms(fn), profiler_ms=profiler_ms(fn, kernels))
 
 
 def phase_card():
@@ -96,6 +176,22 @@ def phase_build():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  {line.strip()}", flush=True)
     cuda_nn.library()
+
+
+def _gated(query, tgt, valid, gate2):
+    """How many valid query-target pairs have d2 < gate2 (chunked)."""
+    n = 0
+    for s in range(0, tgt.shape[0], 8192):
+        d = ((query[:, None, :] - tgt[None, s:s + 8192]) ** 2).sum(-1) < gate2
+        n += int(d[:, valid[s:s + 8192]].sum())
+    return n
+
+
+def issue_ms(pairs):
+    """The issue ceiling of a pair kernel: GATE_INSTR_PER_PAIR
+    lane-instructions a pair at the card's lane issue rate. Computed, not
+    measured: printed beside the kernel's times, kept out of its record."""
+    return pairs * GATE_INSTR_PER_PAIR / H100_LANE_INSTR_PER_S * 1e3
 
 
 def phase_kernels(dev):
@@ -130,24 +226,32 @@ def phase_kernels(dev):
         if not torch.equal(c, c_ref):
             raise AssertionError(f"cylinder_stats counts differ (t_live={tl is not None}): "
                                  f"{int((c != c_ref).sum())} of {q_n}")
-        # dist_sum: f32 sums in another order (8 target slices vs 512-wide
+        # dist_sum: f32 sums in another order (target slices vs 512-wide
         # chunks) — rtol 2e-5 / atol 1e-4, as tests/test_pallas_nn.py.
         torch.testing.assert_close(s, s_ref, rtol=2e-5, atol=1e-4)
         err = max(err, float((s - s_ref).abs().max()))
-    ms = cuda_ms(lambda: cuda_nn.cylinder_stats(query, normal, tgt, valid, 1.5, 0.5, t_live=t_live))
-    ms_full = cuda_ms(lambda: cuda_nn.cylinder_stats(query, normal, tgt, valid, 1.5, 0.5))
+    MAIN_CALLS["cylinder_stats"] = ("cuda_nn", "cylinder_stats",
+                                    (query, normal, tgt, valid, 1.5, 0.5), dict(t_live=t_live))
+    rec = timings(lambda: cuda_nn.cylinder_stats(query, normal, tgt, valid, 1.5, 0.5,
+                                                 t_live=t_live), ("cylinder_",))
+    full_ms = cuda_ms(lambda: cuda_nn.cylinder_stats(query, normal, tgt, valid, 1.5, 0.5))
     plain_ms = cuda_ms(lambda: cuda_nn.cylinder_stats_plain(query, normal, tgt, valid, 1.5, 0.5))
     n_valid = int(valid.sum())
-    ops = q_n * n_valid * CYL_OPS_PER_PAIR
+    gated = _gated(query, tgt, valid, cuda_nn.f32_square(1.5))
+    ops = q_n * n_valid * CYL_OPS_PER_PAIR + gated * CYL_OPS_PER_GATED_PAIR
     nbytes = q_n * 3 * 4 * 2 + t_n * 3 * 4 + t_n + q_n * 8
     print(f"cylinder_stats: Q={q_n} T={t_n} valid={n_valid}: counts equal "
           f"(mean {float(c_ref.float().mean()):.2f} neighbors), max |dist_sum err| {err:.3g}; "
-          f"kernel {ms:.4f} ms (t_live) / {ms_full:.4f} ms (full T), plain {plain_ms:.3f} ms",
-          flush=True)
+          f"{gated} of {q_n * n_valid} pairs pass the d2 gate; "
+          f"kernel {rec['ms']:.4f} ms (t_live) / {full_ms:.4f} ms (full T), "
+          f"one call {rec['call_ms']:.4f} ms, profiler {rec['profiler_ms']}, "
+          f"plain {plain_ms:.3f} ms; issue ceiling {issue_ms(q_n * n_valid):.4f} ms "
+          f"(computed)", flush=True)
     records.append(dict(name="cylinder_stats", route="cuda",
                         source="plo_tpu_torch/csrc/cylinder_stats.cu",
-                        replaces="plo_tpu/ops/pallas_nn.py:238", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, **_bound(ops, nbytes), library_ms=None))
+                        replaces="plo_tpu/ops/pallas_nn.py:238", max_abs_err=err,
+                        plain_ms=plain_ms, full_t_ms=full_ms, **rec, **_bound(ops, nbytes),
+                        library_ms=None))
 
     # fps_ranks: 64 bins x 1024 slots, 200 steps; bins filled unevenly (an
     # empty one, full ones) as the major-axis histogram fills them.
@@ -162,16 +266,19 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     if not torch.equal(r, r_ref):
         raise AssertionError(f"fps_ranks differ in {int((r != r_ref).sum())} slots")
-    ms = cuda_ms(lambda: cuda_nn.fps_ranks(table_xyz, table_occ, steps_t, 200))
-    plain_ms = cuda_ms(lambda: cuda_nn.fps_ranks_plain(table_xyz, table_occ, steps_t, 200), reps=10)
+    MAIN_CALLS["fps_ranks"] = ("cuda_nn", "fps_ranks", (table_xyz, table_occ, steps_t, 200), {})
+    rec = timings(lambda: cuda_nn.fps_ranks(table_xyz, table_occ, steps_t, 200), ("fps_kernel",))
+    plain_ms = cuda_ms(lambda: cuda_nn.fps_ranks_plain(table_xyz, table_occ, steps_t, 200))
     occupied = int(table_occ.sum())
     ops = occupied * (steps - 1) * FPS_OPS_PER_SLOT_STEP
     nbytes = b * c * (3 * 4 + 4) + b * c * 4
     print(f"fps_ranks: B={b} C={c} steps={steps} occupied={occupied}: ranks equal "
-          f"({int((r < 200).sum())} ranked); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"({int((r < 200).sum())} ranked); kernel {rec['ms']:.4f} ms, one call "
+          f"{rec['call_ms']:.4f} ms, profiler {rec['profiler_ms']}, plain {plain_ms:.3f} ms",
+          flush=True)
     records.append(dict(name="fps_ranks", route="cuda", source="plo_tpu_torch/csrc/fps_ranks.cu",
-                        replaces="plo_tpu/ops/pallas_nn.py:344", max_abs_err=0.0, ms=ms,
-                        plain_ms=plain_ms, **_bound(ops, nbytes), library_ms=None))
+                        replaces="plo_tpu/ops/pallas_nn.py:344", max_abs_err=0.0,
+                        plain_ms=plain_ms, **rec, **_bound(ops, nbytes), library_ms=None))
     return records + phase_anchor_kernels(dev, g)
 
 
@@ -214,20 +321,22 @@ def phase_anchor_kernels(dev, g):
     dup = tgt[:4].repeat(3, 1).contiguous()   # ties across the whole target
     cases = [("main", tgt, valid), ("all-invalid", tgt, none_valid),
              ("duplicates", dup, torch.ones(12, dtype=torch.bool, device=dev))]
+    MAIN_CALLS["nearest"] = ("cuda_nn", "nearest", (query, tgt, valid, PICP_R), {})
+    MAIN_CALLS["projected_argmin"] = ("cuda_nn", "projected_argmin",
+                                      (query, normal, tgt, valid, eg, PICP_R_PROJ), {})
     kernels = [
         ("nearest", lambda t, v: cuda_nn.nearest(query, t, v, PICP_R),
-         lambda t, v: cuda_nn.nearest_plain(query, t, v, PICP_R)),
+         lambda t, v: cuda_nn.nearest_plain(query, t, v, PICP_R), ("nearest_",)),
         ("projected_argmin", lambda t, v: cuda_nn.projected_argmin(query, normal, t, v, eg, PICP_R_PROJ),
-         lambda t, v: cuda_nn.projected_argmin_plain(query, normal, t, v, eg, PICP_R_PROJ)),
+         lambda t, v: cuda_nn.projected_argmin_plain(query, normal, t, v, eg, PICP_R_PROJ),
+         ("projected_",)),
     ]
     n_valid = int(valid.sum())
     # Pairs that pass projected_argmin's d2 gate: only they need the cross product.
-    eg2 = cuda_nn.f32_square(eg)
-    gated = sum(int((((query[:, None, :] - tgt[None, s:s + 8192]) ** 2).sum(-1) < eg2)
-                    [:, valid[s:s + 8192]].sum()) for s in range(0, n_valid, 8192))
+    gated = _gated(query, tgt, valid, cuda_nn.f32_square(eg))
     nbytes_in = q_n * 12 + t_n * 12 + t_n
     records = []
-    for name, kern, plain in kernels:
+    for name, kern, plain, kernel_names in kernels:
         for case, t, v in cases:
             out, ref = kern(t, v), plain(t, v)
             torch.cuda.synchronize()
@@ -241,7 +350,7 @@ def phase_anchor_kernels(dev, g):
                 raise AssertionError(f"{name}: a tie did not go to the lowest index")
             if case == "main":
                 found = int(out[2].sum())
-        ms = cuda_ms(lambda: kern(tgt, valid))
+        rec = timings(lambda: kern(tgt, valid), kernel_names)
         plain_ms = cuda_ms(lambda: plain(tgt, valid))
         if name == "nearest":
             ops = q_n * n_valid * NEAREST_OPS_PER_PAIR
@@ -251,13 +360,100 @@ def phase_anchor_kernels(dev, g):
             nbytes = nbytes_in + q_n * 12 + q_n * 9
         print(f"{name}: Q={q_n} T={t_n} valid={n_valid}: equal to the plain version bit for bit "
               f"(main: {found} found; all-invalid: none; duplicates: lowest index); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {rec['ms']:.4f} ms, one call {rec['call_ms']:.4f} ms, profiler "
+              f"{rec['profiler_ms']}, plain {plain_ms:.3f} ms; issue ceiling "
+              f"{issue_ms(q_n * n_valid):.4f} ms (computed)", flush=True)
         records.append(dict(name=name, route="cuda", source=f"plo_tpu_torch/csrc/{name}.cu",
                             replaces="plo_tpu/ops/pallas_nn.py:" + ("117" if name == "nearest" else "148"),
-                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **_bound(ops, nbytes),
+                            max_abs_err=0.0, plain_ms=plain_ms, **rec, **_bound(ops, nbytes),
                             library_ms=None))
     print(f"projected_argmin: {gated} of {q_n * n_valid} valid pairs pass the d2 gate", flush=True)
     return records
+
+
+def phase_knn(dev, g):
+    """knn on the card against knn on the CPU on the same inputs, at the
+    default path's IMLS search (2,048 queries, k = 20, r = 3 m, a
+    131,072-slot target with 57,600 valid): indices, masks and d2 exactly
+    equal. The target holds exact ties inside a chunk (40 copies of one
+    point, more than k) and across chunk boundaries (the last 4,000 valid
+    points repeat the first 4,000), and queries sit on tied points. Times
+    the search on the card on the same target before the ties are put in
+    (`knn_ms`, the common case) and after (`knn_ties_ms`, which takes the
+    exact second pass)."""
+    import torch
+    from plo_tpu_torch.ops import neighbors
+
+    q_n, t_n, live, k, radius = 2048, CAPACITY, LIVE, 20, 3.0
+    tgt = torch.zeros((t_n, 3), device=dev)
+    tgt[:live] = torch.rand((live, 3), generator=g, device=dev) * 40.0 - 20.0
+    tgt[:live, 2] *= 0.1
+    valid = torch.arange(t_n, device=dev) < live
+    pick = torch.randint(0, live, (q_n,), generator=g, device=dev)
+    query = (tgt[pick] + 0.3 * torch.randn((q_n, 3), generator=g, device=dev)).contiguous()
+    search = lambda: neighbors.knn(query, tgt, valid, k=k, radius=radius)
+    MAIN_CALLS["knn"] = ("neighbors", "knn", (query.clone(), tgt.clone(), valid),
+                         dict(k=k, radius=radius))
+    rec = dict(knn_ms=cuda_ms(search))
+
+    tgt[live - 4000:live] = tgt[:4000]
+    a = live // 3                 # inside one chunk at the path's chunk size
+    tgt[a:a + 40] = tgt[a + 40]
+    query[:200] = tgt[torch.randint(0, 4000, (200,), generator=g, device=dev)]
+    query[200:250] = tgt[a + 40]
+    cpu = [x.cpu() for x in (query, tgt, valid)]
+
+    MAIN_CALLS["knn (ties)"] = ("neighbors", "knn", (query, tgt, valid), dict(k=k, radius=radius))
+    out = neighbors.knn(query, tgt, valid, k=k, radius=radius)
+    ref = neighbors.knn(*cpu, k=k, radius=radius)
+    differ = _rows_differ(out, ref)
+    print(f"knn: {differ} of {q_n} rows differ between CUDA and CPU", flush=True)
+    if differ:
+        raise AssertionError(f"knn on CUDA differs from knn on the CPU in {differ} rows")
+    if not bool((out[1][200:250] < a + 40).all()):
+        raise AssertionError("knn: a tie inside a chunk did not go to the lower indices")
+    rec["knn_ties_ms"] = cuda_ms(search)
+    print(f"knn: Q={q_n} T={t_n} k={k}: equal to the CPU form (ties: lowest index); "
+          f"{rec['knn_ms']:.3f} ms on the card, {rec['knn_ties_ms']:.3f} ms with the ties",
+          flush=True)
+    return rec
+
+
+def _rows_differ(out, ref):
+    """How many rows differ in any of two functions' outputs (a tensor or a
+    tuple of tensors of Q rows each)."""
+    import torch
+    out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
+    rows = torch.zeros(out[0].shape[0], dtype=torch.bool)
+    for x, y in zip(out, ref):
+        rows |= (x.cpu() != y.cpu()).reshape(x.shape[0], -1).any(1)
+    return int(rows.sum())
+
+
+def phase_baseline(root):
+    """Each call of MAIN_CALLS made with the function of the same name from
+    the older checkout at `root` (its plo_tpu_torch/ops modules, loaded under
+    other names, its kernels built into its own _build/): the rows where the
+    two outputs differ, and both timed in turns (root, this tree, this tree,
+    root) with cuda_ms, and root's with call_ms."""
+    import importlib.util
+    mods = {}
+    for name in sorted({m for m, _, _, _ in MAIN_CALLS.values()}):
+        spec = importlib.util.spec_from_file_location(
+            f"baseline_{name}", os.path.join(root, "plo_tpu_torch", "ops", f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    seconds, _ = mods["cuda_nn"].build()
+    print(f"baseline: {root}, built in {seconds:.2f} s", flush=True)
+    for label, (mod, fn, args, kwargs) in MAIN_CALLS.items():
+        old = getattr(mods[mod], fn)
+        new = getattr(importlib.import_module(f"plo_tpu_torch.ops.{mod}"), fn)
+        before, after = (lambda f=f: f(*args, **kwargs) for f in (old, new))
+        differ = _rows_differ(before(), after())
+        b1, a1, a2, b2 = cuda_ms(before), cuda_ms(after), cuda_ms(after), cuda_ms(before)
+        print(f"baseline {label}: {differ} rows differ from this tree's; in turns: baseline "
+              f"{b1:.4f} / {b2:.4f} ms, this tree {a1:.4f} / {a2:.4f} ms; baseline one call "
+              f"{call_ms(before):.4f} ms", flush=True)
 
 
 def _bound(ops, nbytes):
@@ -330,7 +526,12 @@ def phase_path(dev, name, cfg, scans, gt, expect):
     return launches
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke test of plo_tpu_torch on one CUDA card.")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="an older checkout whose functions of the timed calls' names are "
+                         "timed beside this tree's, in turns")
+    args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     phase_card()
@@ -339,6 +540,9 @@ def main():
     phase_build()
     dev = torch.device("cuda")
     records = phase_kernels(dev)
+    phase_knn(dev, torch.Generator(device=dev).manual_seed(2))
+    if args.baseline is not None:
+        phase_baseline(os.path.abspath(args.baseline))
     scans, gt = make_sequence()
     default, b1, b2 = configs()
     zero = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}

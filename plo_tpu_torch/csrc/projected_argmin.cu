@@ -8,22 +8,36 @@
 // lowest index, -1 when no target passes. Returns proj = sqrt(p2),
 // idx, valid = idx >= 0.
 //
-// What bounds it on an H100: arithmetic. About 27 FP32 operations per
-// query-target pair (3 sub; the cross product's 6 mul and 3 sub; 3 mul and
-// 2 add for each of p2 and d2; 3 compares, select); at 2,000 queries x
-// ~57,600 valid targets ~3.1 GFLOP (~0.046 ms at 67 TFLOP/s), against
-// ~1.7 MB of inputs.
+// What bounds it on an H100: instruction issue and, at 2,000 queries, the
+// parallelism to spread it. Every pair needs d2 and its compare, unfused
+// (~10 lane-instructions); at plane-ICP's 2,000 queries x 57,600 valid
+// targets that is ~1.2 G, ~0.04 ms of issue on 132 SMs. The cross product
+// and p2 are needed only past the d2 gate (0.5 % of the pairs at the 2.25 m
+// gate), but a warp pays them whenever one of its lanes' pairs passes.
+// The inputs are ~1.7 MB, ~0.5 us at 3.35 TB/s.
 //
-// Design (as csrc/nearest.cu):
-//  * One thread per query, 128 queries per block; the target streams through
-//    shared memory in 256-point tiles, dealt round-robin to kSplits slices
-//    along gridDim.y. A second kernel merges the [kSplits, Q] partials in
-//    slice order by (p2, idx), so a tie goes to the lowest index; no atomics.
-//  * All-invalid tiles are skipped after their load (__syncthreads_or).
-//  * The cross product and p2 are computed only where the d2 gate passes:
-//    a pair that fails it can never be taken, so the branch changes no
-//    result, and at plane-ICP's 2.25 m euclidean gate most pairs of a warp
-//    fail it together.
+// Design:
+//  * Four queries a thread (512 a block), so one 16-byte shared load of a
+//    target point serves four pairs. 2,000 queries are four such blocks; the
+//    target's tiles are dealt round-robin to S slices along gridDim.y, S
+//    chosen so that the grid is about four blocks an SM (4 x 128 at 2,000
+//    queries), 16 warps an SM to hide the latency of the shared loads.
+//  * The target streams through shared memory as float4 points, +inf where
+//    invalid, from tiles staged with cp.async one tile ahead
+//    (csrc/tile_stream.cuh). Tiles with no valid point (the padding past the
+//    filtered cloud's valid prefix) are skipped after one read of their mask.
+//  * The d2 gate first: for each run of 32 targets a thread records which
+//    of its pairs pass as bits, then computes the cross product and p2 for
+//    the set bits only.
+//  * One launch. Each block folds its per-query best into a 64-bit key,
+//    p2's bits above the index's: for p2 >= 0 the key orders exactly as
+//    (p2, idx) does lexicographically, so an atomicMin over the slices gives
+//    the lowest p2 and, among equal p2, the lowest index, whatever order the
+//    blocks run in (an integer min: the result is deterministic). The last
+//    block of each query block to finish (a ticket counted with atomicAdd
+//    after a __threadfence) turns the keys into proj, idx and valid. The C
+//    entry sets keys and tickets (the caller's scratch) with two memsets
+//    before the launch.
 //  * The gates eg2 and pg2 come in as f32 values the caller squared in f32
 //    (the XLA path's rounding: f32(0.8)^2 = 0.64000005, not 0.64). d2, the
 //    cross product and p2 use the _rn intrinsics in the plain version's
@@ -33,121 +47,128 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile_stream.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 256;
-constexpr int kSplits = 32;
+constexpr int kQ = 4;                          // queries a thread
+constexpr int kBlockQ = kQ * plo::kThreads;    // queries a block
+constexpr int kBlocksPerSM = 4;
+constexpr int kMaxSplits = 128;
+constexpr unsigned long long kNoKey = ~0ull;
 
-__global__ void projected_partial(const float* __restrict__ query,
-                                  const float* __restrict__ normal, int q,
-                                  const float* __restrict__ target,
-                                  const unsigned char* __restrict__ target_valid,
-                                  int t, float eg2, float pg2,
-                                  float* __restrict__ part_p2,
-                                  int* __restrict__ part_idx) {
-  __shared__ float tx[kTile];
-  __shared__ float ty[kTile];
-  __shared__ float tz[kTile];
+__global__ void __launch_bounds__(plo::kThreads)
+projected_kernel(const float* __restrict__ query, const float* __restrict__ normal, int q,
+                 const float* __restrict__ target,
+                 const unsigned char* __restrict__ target_valid, int t, float eg2,
+                 float pg2, unsigned long long* __restrict__ keys,
+                 unsigned* __restrict__ tickets, float* __restrict__ proj,
+                 int* __restrict__ idx, unsigned char* __restrict__ valid) {
+  __shared__ plo::TileBuffers sm;
+  __shared__ bool last;
 
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool live_q = qi < q;
-  const float qx = live_q ? query[3 * qi + 0] : 0.f;
-  const float qy = live_q ? query[3 * qi + 1] : 0.f;
-  const float qz = live_q ? query[3 * qi + 2] : 0.f;
-  const float nx = live_q ? normal[3 * qi + 0] : 0.f;
-  const float ny = live_q ? normal[3 * qi + 1] : 0.f;
-  const float nz = live_q ? normal[3 * qi + 2] : 0.f;
+  float qx[kQ], qy[kQ], qz[kQ], nx[kQ], ny[kQ], nz[kQ], best[kQ];
+  int best_idx[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    const bool live_q = qi < q;
+    qx[u] = live_q ? query[3 * qi + 0] : 0.f;
+    qy[u] = live_q ? query[3 * qi + 1] : 0.f;
+    qz[u] = live_q ? query[3 * qi + 2] : 0.f;
+    nx[u] = live_q ? normal[3 * qi + 0] : 0.f;
+    ny[u] = live_q ? normal[3 * qi + 1] : 0.f;
+    nz[u] = live_q ? normal[3 * qi + 2] : 0.f;
+    best[u] = INFINITY;
+    best_idx[u] = -1;
+  }
 
-  float best = INFINITY;
-  int best_idx = -1;
-  const int n_tiles = (t + kTile - 1) / kTile;
-  for (int tile = blockIdx.y; tile < n_tiles; tile += kSplits) {
-    const int base = tile * kTile;
-    __syncthreads();
-    int any = 0;
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      const int ti = base + j;
-      const bool ok = ti < t && target_valid[ti];
-      tx[j] = ok ? target[3 * ti + 0] : INFINITY;
-      ty[j] = ok ? target[3 * ti + 1] : INFINITY;
-      tz[j] = ok ? target[3 * ti + 2] : INFINITY;
-      any |= ok;
-    }
-    if (!__syncthreads_or(any)) continue;
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float dx = __fsub_rn(tx[j], qx);
-      const float dy = __fsub_rn(ty[j], qy);
-      const float dz = __fsub_rn(tz[j], qz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      // +inf padding gives d2 = inf (or nan), which fails the gate.
-      if (d2 < eg2) {
-        const float cx = __fsub_rn(__fmul_rn(dy, nz), __fmul_rn(dz, ny));
-        const float cy = __fsub_rn(__fmul_rn(dz, nx), __fmul_rn(dx, nz));
-        const float cz = __fsub_rn(__fmul_rn(dx, ny), __fmul_rn(dy, nx));
-        const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)),
-                                   __fmul_rn(cz, cz));
-        if (p2 < pg2 && p2 < best) {
-          best = p2;
-          best_idx = base + j;
+  // Per 32 targets: first the d2 gate of every pair, as bits; then the
+  // cross product and p2 for the set bits only, in ascending target order
+  // (so the strict < keeps the lowest index among equal p2).
+  auto body = [&](const float4* pts, int base) {
+#pragma unroll 1
+    for (int g = 0; g < plo::kTile; g += 32) {
+      unsigned near[kQ];
+      plo::gate_bits<kQ>(pts, g, qx, qy, qz, eg2, near);
+#pragma unroll
+      for (int u = 0; u < kQ; ++u) {
+        while (near[u] != 0u) {
+          const int k = __ffs(near[u]) - 1;
+          near[u] &= near[u] - 1u;
+          const float4 p = pts[g + k];
+          const float dx = __fsub_rn(p.x, qx[u]);
+          const float dy = __fsub_rn(p.y, qy[u]);
+          const float dz = __fsub_rn(p.z, qz[u]);
+          const float cx = __fsub_rn(__fmul_rn(dy, nz[u]), __fmul_rn(dz, ny[u]));
+          const float cy = __fsub_rn(__fmul_rn(dz, nx[u]), __fmul_rn(dx, nz[u]));
+          const float cz = __fsub_rn(__fmul_rn(dx, ny[u]), __fmul_rn(dy, nx[u]));
+          const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)),
+                                     __fmul_rn(cz, cz));
+          if (p2 < pg2 && p2 < best[u]) {
+            best[u] = p2;
+            best_idx[u] = base + g + k;
+          }
         }
       }
     }
-  }
-  if (live_q) {
-    part_p2[blockIdx.y * q + qi] = best;
-    part_idx[blockIdx.y * q + qi] = best_idx;
-  }
-}
+  };
+  plo::stream_tiles(sm, target, target_valid, t, body);
 
-__global__ void projected_merge(const float* __restrict__ part_p2,
-                                const int* __restrict__ part_idx, int q,
-                                float* __restrict__ proj, int* __restrict__ idx,
-                                unsigned char* __restrict__ valid) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
-  float best = INFINITY;
-  int best_idx = -1;
-  for (int s = 0; s < kSplits; ++s) {
-    const float v = part_p2[s * q + qi];
-    const int i = part_idx[s * q + qi];
-    if (i >= 0 && (v < best || (v == best && i < best_idx))) {
-      best = v;
-      best_idx = i;
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    if (qi < q && best_idx[u] >= 0) {
+      // p2 >= 0, so its bits order as its value.
+      atomicMin(&keys[qi], (static_cast<unsigned long long>(__float_as_uint(best[u])) << 32) |
+                               static_cast<unsigned>(best_idx[u]));
     }
   }
-  // A taken p2 passed p2 < pg2, so it is finite exactly when idx >= 0.
-  proj[qi] = best_idx >= 0 ? __fsqrt_rn(best) : INFINITY;
-  idx[qi] = best_idx;
-  valid[qi] = best_idx >= 0;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    if (qi < q) {
+      const unsigned long long key = __ldcg(&keys[qi]);  // from L2, where the atomics ran
+      const bool found = key != kNoKey;
+      proj[qi] = found ? __fsqrt_rn(__uint_as_float(static_cast<unsigned>(key >> 32)))
+                       : INFINITY;
+      idx[qi] = found ? static_cast<int>(key & 0xffffffffu) : -1;
+      valid[qi] = found;
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int plo_projected_splits() { return kSplits; }
+// The number of query blocks for q queries: the size of the ticket scratch.
+extern "C" int plo_projected_blocks(int q) { return (q + kBlockQ - 1) / kBlockQ; }
 
-// query, normal [q, 3] f32; target [t, 3] f32; target_valid [t] bool;
-// eg2, pg2: the squared gates in f32; part_p2/part_idx: [splits, q] scratch;
-// proj [q] f32, idx [q] i32, valid [q] bool. Returns cudaGetLastError()
-// after the launches.
+// query, normal [q, 3] f32; target [t, 3] f32 and target_valid [t] bool,
+// both 16-byte aligned; eg2, pg2: the squared gates in f32; keys [q] u64
+// and tickets [plo_projected_blocks(q)] u32: scratch, set here before the
+// launch; proj [q] f32, idx [q] i32, valid [q] bool.
+// Returns the first error of the memsets and the launch.
 extern "C" int plo_projected_argmin(const void* query, const void* normal, int q,
                                     const void* target, const void* target_valid,
-                                    int t, float eg2, float pg2, void* part_p2,
-                                    void* part_idx, void* proj, void* idx,
+                                    int t, float eg2, float pg2, void* keys,
+                                    void* tickets, void* proj, void* idx,
                                     void* valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((q + kThreads - 1) / kThreads, kSplits);
-  projected_partial<<<grid, kThreads, 0, s>>>(
+  const dim3 grid(plo_projected_blocks(q), plo::splits_for<kBlockQ, kBlocksPerSM, kMaxSplits>(q));
+  cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * q, s);  // kNoKey
+  if (err == cudaSuccess) err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * grid.x, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  projected_kernel<<<grid, plo::kThreads, 0, s>>>(
       static_cast<const float*>(query), static_cast<const float*>(normal), q,
       static_cast<const float*>(target),
       static_cast<const unsigned char*>(target_valid), t, eg2, pg2,
-      static_cast<float*>(part_p2), static_cast<int*>(part_idx));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  projected_merge<<<(q + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_p2), static_cast<const int*>(part_idx), q,
+      static_cast<unsigned long long*>(keys), static_cast<unsigned*>(tickets),
       static_cast<float*>(proj), static_cast<int*>(idx),
       static_cast<unsigned char*>(valid));
   return static_cast<int>(cudaGetLastError());

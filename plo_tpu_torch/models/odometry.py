@@ -12,12 +12,14 @@ RANSAC/DRPM, Ceres (Huber Gauss-Newton) or LS (trimmed least squares).
 
 PyTorch has no lax.while_loop or lax.cond, so the loop runs on the host:
 each ICP iteration syncs once to the host for the convergence test (and,
-with IMLS's hybrid refresh, the re-search decision), and RANSAC's staged
-early exit adds a second sync (solvers/ransac.py).
+with IMLS's hybrid refresh, the re-search decision), RANSAC's staged early
+exit adds a second sync (solvers/ransac.py), and each IMLS search a third,
+for knn's tie check (ops/neighbors.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
@@ -123,6 +125,23 @@ class Odometry:
         self.last_filtered: Optional[PointCloud] = None
         self.trajectory: List[OdometryFrame] = []
         self._last_rel: Optional[torch.Tensor] = None   # device rPose of the last frame
+        # The front-end keeps the first `capacity` points of a larger scan;
+        # the dropped points are counted here and warned about once.
+        self.truncated_points = 0
+        self._warned_truncation = False
+
+    def _note_truncation(self, n_raw: int) -> None:
+        cap = self.frontend.capacity
+        if n_raw > cap:
+            self.truncated_points += n_raw - cap
+            if not self._warned_truncation:
+                self._warned_truncation = True
+                warnings.warn(
+                    f"scan with {n_raw} points exceeds capacity "
+                    f"{cap}; {n_raw - cap} "
+                    "points dropped (see Odometry.truncated_points). Raise "
+                    "`capacity` to cover the sensor's max return count.",
+                    RuntimeWarning, stacklevel=3)
 
     def _target(self) -> PointCloud:
         """accumulateTargetCloud (laser_odometry.cpp:116-136)."""
@@ -215,6 +234,7 @@ class Odometry:
         """One frame: front-end, ICP against the window, pose integration.
         `draws` replaces the run's own random numbers for this frame (an
         object with GeneratorDraws' methods)."""
+        self._note_truncation(len(raw_pts))
         draws = self.draws if draws is None else draws
         first = self.frame_count == 0
         fe = self.frontend.process(

@@ -35,6 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("nearest.cu", "projected_argmin.cu", "cylinder_stats.cu", "fps_ranks.cu")
+HEADERS = ("cp_async.cuh", "tile_stream.cuh")
 LIBRARY = os.path.join(BUILD_DIR, "libplo_kernels.so")
 
 # fps_ranks keeps a bin's x, y, z and min-d2 in shared memory (16 B a slot),
@@ -89,7 +90,7 @@ def _stale() -> bool:
     if not os.path.exists(LIBRARY):
         return True
     built = os.path.getmtime(LIBRARY)
-    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > built for s in SOURCES)
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, s)) > built for s in SOURCES + HEADERS)
 
 
 def library() -> ctypes.CDLL:
@@ -106,12 +107,12 @@ def library() -> ctypes.CDLL:
             lib.plo_nearest_splits.restype = ci
             lib.plo_nearest.argtypes = [vp, ci, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp]
             lib.plo_nearest.restype = ci
-            lib.plo_projected_splits.argtypes = []
-            lib.plo_projected_splits.restype = ci
+            lib.plo_projected_blocks.argtypes = [ci]
+            lib.plo_projected_blocks.restype = ci
             lib.plo_projected_argmin.argtypes = [vp, vp, ci, vp, vp, ci, cf, cf,
                                                  vp, vp, vp, vp, vp, vp]
             lib.plo_projected_argmin.restype = ci
-            lib.plo_cylinder_splits.argtypes = []
+            lib.plo_cylinder_splits.argtypes = [ci]
             lib.plo_cylinder_splits.restype = ci
             lib.plo_cylinder_stats.argtypes = [vp, vp, ci, vp, vp, ci, vp, cf, cf,
                                                vp, vp, vp, vp, vp]
@@ -136,6 +137,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its data starts on a 16-byte boundary, else a copy (a
+    fresh allocation is aligned): the tile kernels copy 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def f32_square(x: float) -> float:
@@ -279,13 +286,13 @@ def projected_argmin(query: torch.Tensor, query_normal: torch.Tensor, target: to
     if q == 0:
         return proj, idx, valid
     lib = library()
-    splits = lib.plo_projected_splits()
-    part_p2 = torch.empty((splits, q), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, q), dtype=torch.int32, device=dev)
+    target, target_valid = _aligned16(target), _aligned16(target_valid)
+    keys = torch.empty(q, dtype=torch.int64, device=dev)
+    tickets = torch.empty(lib.plo_projected_blocks(q), dtype=torch.int32, device=dev)
     err = lib.plo_projected_argmin(
         query.data_ptr(), query_normal.data_ptr(), q, target.data_ptr(),
         target_valid.data_ptr(), t, f32_square(euclid_gate), f32_square(proj_gate),
-        part_p2.data_ptr(), part_idx.data_ptr(), proj.data_ptr(), idx.data_ptr(),
+        keys.data_ptr(), tickets.data_ptr(), proj.data_ptr(), idx.data_ptr(),
         valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "projected_argmin")
     LAUNCHES["projected_argmin"] += 1
@@ -346,7 +353,8 @@ def cylinder_stats(query: torch.Tensor, normal: torch.Tensor, target: torch.Tens
     if q == 0:
         return cnt, dsum
     lib = library()
-    splits = lib.plo_cylinder_splits()
+    target, target_valid = _aligned16(target), _aligned16(target_valid)
+    splits = lib.plo_cylinder_splits(q)
     part_cnt = torch.empty((splits, q), dtype=torch.int32, device=dev)
     part_sum = torch.empty((splits, q), dtype=torch.float32, device=dev)
     err = lib.plo_cylinder_stats(

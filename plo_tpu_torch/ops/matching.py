@@ -23,7 +23,7 @@ import torch
 
 from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import IMLSConfig, PlaneICPConfig
-from plo_tpu_torch.ops import neighbors
+from plo_tpu_torch.ops import cuda_nn, neighbors
 from plo_tpu_torch.ops.eigh3 import eigh3_descending
 
 
@@ -169,7 +169,7 @@ def _evaluate(source, npts, nnrm, n_ok, near_d2, found, min_dist, n_anchor,
     diff = source.xyz[:, None, :] - npts
     height, enough = _height(diff, nnrm, n_ok, near_d2, cfg.search_number)
     stages = [
-        ("too_far", found & (min_dist <= cfg.h * cfg.h)),
+        ("too_far", found & (min_dist <= cuda_nn.f32_square(cfg.h))),
         ("invalid_normal", anchor_normal_ok),
         ("normal_constraint", anchor_angle_ok),
         ("mls_fail", enough),
@@ -203,7 +203,7 @@ def imls_project_cached(source: PointCloud, target: PointCloud, cfg: IMLSConfig,
 
     diff = source.xyz[:, None, :] - npts
     d2_euclid = (diff * diff).sum(-1)
-    present = nfound & (d2_euclid <= cfg.r * cfg.r)   # radius re-gate
+    present = nfound & (d2_euclid <= cuda_nn.f32_square(cfg.r))   # radius re-gate
     d2_masked = torch.where(present, d2_euclid, math.inf)
     j_star = torch.argmin(d2_masked, dim=1, keepdim=True)
     found = present.any(1)

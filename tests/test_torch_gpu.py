@@ -8,12 +8,16 @@ tests/conftest.py (which imports JAX) is left out:
 
 Tolerances: counts, ranks, indices and masks exactly; nearest's d2 and
 projected_argmin's proj bit-equal (the kernels round as the plain versions
-do); dist_sum to rtol 2e-5 / atol 1e-4 (f32 sums in another order)."""
+do); dist_sum to rtol 2e-5 / atol 1e-4 (f32 sums in another order); knn's d2
+exactly (the same elementwise f32 operations on both devices); a default
+frame's poses on the card within 2 mm / 1e-4 rad of the CPU's (f32
+reductions and transcendental functions round differently on the two
+devices; the bound of the resume test in tests/test_torch_odometry.py)."""
 import numpy as np
 import pytest
 import torch
 
-from plo_tpu_torch.ops import cuda_nn
+from plo_tpu_torch.ops import cuda_nn, neighbors
 
 
 @pytest.fixture
@@ -120,3 +124,152 @@ def test_gpu_projected_argmin_kernel_matches_plain(gen, cuda, case):
         assert 0 < int(out[2].sum()) < query.shape[0]
     else:
         assert (out[1] == -1).all() and torch.isinf(out[0]).all()
+
+
+# The tile kernels (cylinder_stats, projected_argmin) at the edges of their
+# design: 512 queries a block, 128-point tiles dealt round-robin to slices.
+EDGES = {
+    "Q not a multiple of 512": dict(q=700),
+    "Q = 1": dict(q=1),
+    "t_live = 0": dict(t_live=0),
+    "t_live = 1": dict(t_live=1),
+    "t_live one short of a tile": dict(t_live=127),
+    "targets end inside a slice": dict(live=2999),
+    "all-invalid targets": dict(all_invalid=True),
+    "12 duplicated targets": dict(t=12, live=12, dup=True),
+    "queries on targets": dict(on_target=True),
+}
+
+
+def _edge_inputs(gen, cuda, q=600, t=5000, live=4000, t_live=None, all_invalid=False,
+                 dup=False, on_target=False):
+    tgt = np.zeros((t, 3), np.float32)
+    tgt[:live] = gen.uniform(-6, 6, (live, 3)).astype(np.float32)
+    if dup:
+        tgt[:] = tgt[0]
+    tv = np.arange(t) < live
+    if t_live is not None:
+        tv &= np.arange(t) < t_live
+    if all_invalid:
+        tv[:] = False
+    pick = gen.integers(0, max(live, 1), q)
+    query = (tgt[pick] + gen.normal(0, 0.3, (q, 3))).astype(np.float32)
+    if on_target or dup:
+        query[: (q + 1) // 2] = tgt[pick[: (q + 1) // 2]]   # d2 = 0
+    normal = gen.normal(size=(q, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    args = [torch.from_numpy(a).to(cuda) for a in (query, normal, tgt, tv)]
+    tl = None if t_live is None else torch.tensor(t_live, dtype=torch.int32, device=cuda)
+    return args, tl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_gpu_cylinder_stats_edges(gen, cuda, edge):
+    args, tl = _edge_inputs(gen, cuda, **EDGES[edge])
+    cuda_nn.reset_launches()
+    c, s = cuda_nn.cylinder_stats(*args, 1.5, 0.5, t_live=tl)
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["cylinder_stats"] == 1
+    c0, s0 = cuda_nn.cylinder_stats(*[a.cpu() for a in args], 1.5, 0.5,
+                                    t_live=None if tl is None else tl.cpu())
+    assert torch.equal(c.cpu(), c0)
+    torch.testing.assert_close(s.cpu(), s0, rtol=2e-5, atol=1e-4)
+    if edge == "12 duplicated targets":
+        assert bool((c0[: 300] == 12).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", [e for e in EDGES if not e.startswith("t_live")])
+def test_gpu_projected_argmin_edges(gen, cuda, edge):
+    args, _ = _edge_inputs(gen, cuda, **EDGES[edge])
+    cuda_nn.reset_launches()
+    for _ in range(2):   # the second launch finds the merge state the first left
+        out = cuda_nn.projected_argmin(*args, 2.25, 0.8)
+        torch.cuda.synchronize()
+        _assert_same(out, cuda_nn.projected_argmin_plain(*args, 2.25, 0.8))
+    assert cuda_nn.LAUNCHES["projected_argmin"] == 2
+    if edge == "12 duplicated targets":   # the half of the queries on the target
+        assert bool((out[1][:300] == 0).all())
+    if edge == "all-invalid targets":
+        assert bool((out[1] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 1000, 4096])
+def test_gpu_knn_ties_match_the_cpu(gen, cuda, chunk):
+    """knn on the card against knn on the CPU: exact ties inside a chunk
+    (40 copies of one point, more than k) and across chunk boundaries, and
+    queries on tied points; indices, d2 and masks equal, ties to the lowest
+    index."""
+    t, live = 20000, 15000
+    tgt = np.zeros((t, 3), np.float32)
+    tgt[:live] = gen.uniform(-10, 10, (live, 3)).astype(np.float32)
+    tgt[live - 3000:live] = tgt[:3000]
+    tgt[5000:5040] = tgt[5040]
+    tv = np.arange(t) < live
+    query = (tgt[gen.integers(0, live, 1500)] + gen.normal(0, 0.3, (1500, 3))).astype(np.float32)
+    query[:200] = tgt[gen.integers(0, 3000, 200)]
+    query[200:250] = tgt[5040]
+    args = [torch.from_numpy(a) for a in (query, tgt, tv)]
+    out = neighbors.knn(*[a.to(cuda) for a in args], k=20, radius=3.0, chunk=chunk)
+    ref = neighbors.knn(*args, k=20, radius=3.0, chunk=chunk)
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b)
+    assert bool((ref[1][200:250] < 5040).all())
+
+
+class _SharedDraws:
+    """The same random numbers on any device: numpy draws seeded by frame and
+    ICP iteration, moved to the device (GeneratorDraws' protocol)."""
+
+    def __init__(self, frame, device):
+        self.frame, self.device = frame, device
+
+    def frontend(self, n, p):
+        rng = np.random.default_rng([self.frame, 0])
+        return [torch.from_numpy(rng.random(p, dtype=np.float32)).to(self.device)
+                for _ in range(n)]
+
+    def ransac(self, iteration, n_valid, m):
+        u = np.random.default_rng([self.frame, 1, iteration]).random(m, dtype=np.float32)
+        n = n_valid.clamp_min(1)
+        return torch.minimum((torch.from_numpy(u).to(self.device) * n.to(torch.float32)).long(),
+                             n - 1)
+
+
+@pytest.mark.gpu
+def test_gpu_default_frames_match_the_cpu(cuda):
+    """Three default-path frames (32 beams x 450, capacity 16384, the
+    corridor world) on the card and on the CPU with the same draws: the
+    filtered masks and the front-end's counts equal, poses within 2 mm /
+    1e-4 rad; the card went through cylinder_stats and fps_ranks. The ICP
+    iteration counts may differ: the solver's f32 reductions round otherwise
+    on the card, and a delta near the 1 mm convergence threshold then stops
+    the loop one or two iterations earlier or later."""
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.io import synthetic
+    from plo_tpu_torch.models.odometry import Odometry
+
+    cfg = cfgmod.Config(laser_odometry=cfgmod.LaserOdometryConfig(motion_prior=False),
+                        sensor=cfgmod.SensorConfig(n_scans=32, azimuth_resolution=360.0 / 450))
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, _ = synthetic.synthetic_sequence(3, n_scans=32, azimuth_steps=450, speed=0.5,
+                                            yaw_rate=0.01, seed=3, world=world)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        odo = Odometry(cfg, capacity=16384, seed=0, device=dev)
+        cuda_nn.reset_launches()
+        frames, masks = [], []
+        for i, s in enumerate(scans):
+            frames.append(odo.process_scan(s, draws=_SharedDraws(i, dev)))
+            masks.append(odo.last_filtered.valid.cpu())
+        runs[dev.type] = frames, masks, dict(cuda_nn.LAUNCHES)
+    (fc, mc, _), (fg, mg, launches) = runs["cpu"], runs["cuda"]
+    assert launches["cylinder_stats"] == 2 and launches["fps_ranks"] == 2
+    for a, b, ma, mb in zip(fc, fg, mc, mg):
+        assert torch.equal(ma, mb)
+        for key in ("n_preprocessed", "n_filtered", "n_candidates", "n_sampled"):
+            assert a.stats[key] == b.stats[key], key
+        np.testing.assert_allclose(b.pose[:3, 3], a.pose[:3, 3], atol=2e-3)
+        np.testing.assert_allclose(b.pose[:3, :3], a.pose[:3, :3], atol=1e-4)
