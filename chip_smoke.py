@@ -9,10 +9,11 @@ traceback, and a watchdog turns a hang into the same:
   1. build the kernels from plo_tpu_torch/csrc with the one nvcc call and
      print the build time and ptxas's register / shared-memory lines;
   2. each kernel against its plain PyTorch version on the card, at its
-     path's shapes (cylinder_stats with and without t_live, fps_ranks;
-     nearest and projected_argmin at plane-ICP's 2,000 queries against a
-     131,072-slot target, plus an all-invalid target and duplicated
-     targets). Each kernel is timed three ways: `ms`, device time from one
+     path's shapes (cylinder_stats with and without t_live; fps_ranks, also
+     on a table of duplicated points; nearest and projected_argmin at
+     plane-ICP's 2,000 queries against a 131,072-slot target, plus an
+     all-invalid target, duplicated targets and an unaligned view of the
+     target). Each kernel is timed three ways: `ms`, device time from one
      pair of CUDA events around up to 50 back-to-back calls queued behind a
      spin kernel (median of 7 runs); `call_ms`, one call between events
      with the device idle before it, so the wrapper's host prelude counts;
@@ -128,19 +129,24 @@ def cuda_ms(fn, runs=7):
     return statistics.median(times)
 
 
-def profiler_ms(fn, kernels, calls=10):
+def profiler_ms(fn, kernels, calls=10, attempts=2):
     """Device milliseconds per call of fn() that torch.profiler attributes to
     the named CUDA kernels (substrings of their names), or None where the
-    trace holds no device event of them."""
+    trace holds no device event of them. A trace that holds no device event
+    at all (it happens now and then on the H100 host) is taken again, up to
+    `attempts` traces."""
     import torch
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev_events:
+            break
     us = [e.time_range.elapsed_us() for e in dev_events if any(k in e.name for k in kernels)]
     if not us:
         print(f"  profiler: no device event named {kernels} among "
@@ -254,18 +260,24 @@ def phase_kernels(dev):
                         library_ms=None))
 
     # fps_ranks: 64 bins x 1024 slots, 200 steps; bins filled unevenly (an
-    # empty one, full ones) as the major-axis histogram fills them.
+    # empty one, full ones) as the major-axis histogram fills them. A second
+    # table repeats points: pairs of duplicates in every bin, and one bin of
+    # 1,024 copies of one point (every min-d2 ties at 0).
     b, c, steps = 64, 1024, 200
     table_xyz = (torch.rand((b, c, 3), generator=g, device=dev) * 40.0 - 20.0).contiguous()
     fill = torch.randint(0, c + 1, (b, 1), generator=g, device=dev)
     fill[0], fill[1] = 0, c
     table_occ = (torch.arange(c, device=dev)[None, :] < fill).to(torch.float32).contiguous()
+    dup_xyz = table_xyz.clone()
+    dup_xyz[:, c // 2:] = dup_xyz[:, :c // 2]
+    dup_xyz[2] = dup_xyz[2, 0]
     steps_t = torch.tensor(steps, dtype=torch.int32, device=dev)
-    r = cuda_nn.fps_ranks(table_xyz, table_occ, steps_t, 200)
-    r_ref = cuda_nn.fps_ranks_plain(table_xyz, table_occ, steps_t, 200)
-    torch.cuda.synchronize()
-    if not torch.equal(r, r_ref):
-        raise AssertionError(f"fps_ranks differ in {int((r != r_ref).sum())} slots")
+    for case, xyz in (("duplicates", dup_xyz), ("main", table_xyz)):
+        r = cuda_nn.fps_ranks(xyz, table_occ, steps_t, 200)
+        r_ref = cuda_nn.fps_ranks_plain(xyz, table_occ, steps_t, 200)
+        torch.cuda.synchronize()
+        if not torch.equal(r, r_ref):
+            raise AssertionError(f"fps_ranks ({case}) differ in {int((r != r_ref).sum())} slots")
     MAIN_CALLS["fps_ranks"] = ("cuda_nn", "fps_ranks", (table_xyz, table_occ, steps_t, 200), {})
     rec = timings(lambda: cuda_nn.fps_ranks(table_xyz, table_occ, steps_t, 200), ("fps_kernel",))
     plain_ms = cuda_ms(lambda: cuda_nn.fps_ranks_plain(table_xyz, table_occ, steps_t, 200))
@@ -273,9 +285,9 @@ def phase_kernels(dev):
     ops = occupied * (steps - 1) * FPS_OPS_PER_SLOT_STEP
     nbytes = b * c * (3 * 4 + 4) + b * c * 4
     print(f"fps_ranks: B={b} C={c} steps={steps} occupied={occupied}: ranks equal "
-          f"({int((r < 200).sum())} ranked); kernel {rec['ms']:.4f} ms, one call "
-          f"{rec['call_ms']:.4f} ms, profiler {rec['profiler_ms']}, plain {plain_ms:.3f} ms",
-          flush=True)
+          f"({int((r < 200).sum())} ranked; duplicated points too); kernel {rec['ms']:.4f} ms "
+          f"= {1e3 * rec['ms'] / (steps - 1):.3f} us a step, one call {rec['call_ms']:.4f} ms, "
+          f"profiler {rec['profiler_ms']}, plain {plain_ms:.3f} ms", flush=True)
     records.append(dict(name="fps_ranks", route="cuda", source="plo_tpu_torch/csrc/fps_ranks.cu",
                         replaces="plo_tpu/ops/pallas_nn.py:344", max_abs_err=0.0,
                         plain_ms=plain_ms, **rec, **_bound(ops, nbytes), library_ms=None))
@@ -320,7 +332,8 @@ def phase_anchor_kernels(dev, g):
     none_valid = torch.zeros_like(valid)
     dup = tgt[:4].repeat(3, 1).contiguous()   # ties across the whole target
     cases = [("main", tgt, valid), ("all-invalid", tgt, none_valid),
-             ("duplicates", dup, torch.ones(12, dtype=torch.bool, device=dev))]
+             ("duplicates", dup, torch.ones(12, dtype=torch.bool, device=dev)),
+             ("unaligned", tgt[1:], valid[1:])]   # views 12 and 1 bytes past an allocation
     MAIN_CALLS["nearest"] = ("cuda_nn", "nearest", (query, tgt, valid, PICP_R), {})
     MAIN_CALLS["projected_argmin"] = ("cuda_nn", "projected_argmin",
                                       (query, normal, tgt, valid, eg, PICP_R_PROJ), {})
@@ -358,11 +371,12 @@ def phase_anchor_kernels(dev, g):
         else:
             ops = q_n * n_valid * PROJ_OPS_PER_PAIR + gated * PROJ_OPS_PER_GATED_PAIR
             nbytes = nbytes_in + q_n * 12 + q_n * 9
+        ceiling = issue_ms(q_n * n_valid)
         print(f"{name}: Q={q_n} T={t_n} valid={n_valid}: equal to the plain version bit for bit "
-              f"(main: {found} found; all-invalid: none; duplicates: lowest index); "
-              f"kernel {rec['ms']:.4f} ms, one call {rec['call_ms']:.4f} ms, profiler "
-              f"{rec['profiler_ms']}, plain {plain_ms:.3f} ms; issue ceiling "
-              f"{issue_ms(q_n * n_valid):.4f} ms (computed)", flush=True)
+              f"(main: {found} found; all-invalid: none; duplicates: lowest index; unaligned "
+              f"target); kernel {rec['ms']:.4f} ms, one call {rec['call_ms']:.4f} ms, profiler "
+              f"{rec['profiler_ms']}, plain {plain_ms:.3f} ms; issue ceiling {ceiling:.4f} ms "
+              f"(computed), {100 * ceiling / rec['ms']:.0f} % of it", flush=True)
         records.append(dict(name=name, route="cuda", source=f"plo_tpu_torch/csrc/{name}.cu",
                             replaces="plo_tpu/ops/pallas_nn.py:" + ("117" if name == "nearest" else "148"),
                             max_abs_err=0.0, plain_ms=plain_ms, **rec, **_bound(ops, nbytes),

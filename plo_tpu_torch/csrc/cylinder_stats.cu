@@ -53,7 +53,7 @@ cylinder_partial(const float* __restrict__ query, const float* __restrict__ norm
                  const unsigned char* __restrict__ target_valid, int t,
                  const int* __restrict__ t_live, float rp2, float r2,
                  int* __restrict__ part_cnt, float* __restrict__ part_sum) {
-  __shared__ plo::TileBuffers sm;
+  __shared__ plo::TileBuffers<> sm;
 
   float qx[kQ], qy[kQ], qz[kQ], nx[kQ], ny[kQ], nz[kQ], n2[kQ], sum[kQ];
   int cnt[kQ];

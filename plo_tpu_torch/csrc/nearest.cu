@@ -6,136 +6,172 @@
 // lowest index, -1 when no target is valid (the k=1 anchor search of
 // plane-ICP, laser_odometry.cpp:343-360). valid = idx >= 0 & d2 <= radius^2.
 //
-// What bounds it on an H100: arithmetic. About 10 FP32 operations per
-// query-target pair (3 sub, 3 mul, 2 add, compare, select); at plane-ICP's
-// 2,000 queries x ~57,600 valid targets that is ~1.2 GFLOP (~0.017 ms at
-// 67 TFLOP/s), against ~1.7 MB of inputs.
+// What bounds it on an H100: instruction issue. Every pair needs its d2,
+// unfused so that it rounds as the plain version does (3 sub, 3 mul, 2 add),
+// and its part of the minimum; at plane-ICP's 2,000 queries x ~57,600 valid
+// targets that is ~1.1 G lane-instructions, ~0.03 ms of issue on 132 SMs.
+// The inputs are ~1.7 MB, ~0.5 us at 3.35 TB/s.
 //
 // Design:
-//  * One thread per query, 128 queries per block. The target streams through
-//    shared memory in 256-point tiles; every thread reads the same tile point
-//    at once, which shared memory serves as a broadcast.
-//  * 2,000 queries are only 16 blocks, so the target's tiles are dealt out
-//    round-robin to kSplits slices along gridDim.y (16 x 32 blocks): every
-//    slice gets its share of the valid prefix, wherever it ends. Each block
-//    writes its partial (best, idx) to a [kSplits, Q] scratch; a second
-//    kernel merges the slices in slice order, taking a partial when its
-//    (d2, idx) is lexicographically smaller — so a tie goes to the lowest
-//    index, as in both JAX forms. No atomics, no host sync: the result does
-//    not depend on block scheduling.
-//  * A tile with no valid target is skipped after its load
-//    (__syncthreads_or): the filtered cloud's valid points lie in a prefix of
-//    its 131,072 slots, so the padding costs one read of the mask.
-//  * Invalid targets become +inf coordinates, which never win the strict <.
-//    d2 is computed with the _rn intrinsics in the plain version's order,
-//    (dx*dx + dy*dy) + dz*dz, so that nvcc cannot contract it into FMAs: the
-//    kernel's d2 is bit-equal to the plain PyTorch version's, and so are its
-//    argmin and its radius test.
+//  * Two queries a thread (256 a block), so one 16-byte shared load of a
+//    target point serves two pairs. 2,000 queries are eight such blocks; the
+//    target's tiles are dealt round-robin to S slices along gridDim.y, S
+//    chosen so that the grid is about four blocks an SM (8 x 66 at 2,000
+//    queries). Against four queries a thread (4 x 128) a block streams twice
+//    the tiles (~6.8 live ones, not 3 or 4), which spreads its fixed costs
+//    and evens out the slices: the slowest slice holds 7 tiles, 3 % above
+//    the mean, where it held 4, 14 % above.
+//  * The target streams through shared memory as float4 points, +inf where
+//    invalid, from tiles staged with cp.async one tile ahead
+//    (csrc/tile_stream.cuh). Tiles with no valid point (the padding past the
+//    filtered cloud's valid prefix) are skipped after one read of their mask.
+//  * Per pair, only a minimum: over each run of 32 targets a thread keeps the
+//    run's minimum d2 per query (fminf, one instruction a pair). Where the
+//    run's minimum beats the query's best (strict <, so the earliest run
+//    holding the best value wins), the thread notes the run; the index is
+//    recovered once per window of kWindow tiles, while they are still in
+//    shared memory, by a rescan of the noted run that takes the lowest
+//    position whose d2 == the best. A warp rescans for a query only where
+//    one of its lanes noted a run, and at the main path's shapes a block's
+//    slice is one window, so a query pays one rescan of 32 pairs a block.
+//    d2 is recomputed by the same operations, so it compares bit for bit.
+//  * One launch: the slices' minima merge by an atomicMin on a packed
+//    (d2 bits, idx) key, and the last block of each query block writes d2,
+//    idx and valid (tile_stream.cuh's merge; one memset before the launch).
+//  * d2 uses the _rn intrinsics in the plain version's order,
+//    (dx*dx + dy*dy) + dz*dz with d = q - t, so that nvcc cannot contract it
+//    into FMAs: the kernel's d2 is bit-equal to the plain PyTorch version's,
+//    and so are its argmin and its radius test (radius^2 squared in f32 by
+//    the caller).
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile_stream.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 256;
-constexpr int kSplits = 32;
+constexpr int kQ = 2;                          // queries a thread
+constexpr int kBlockQ = kQ * plo::kThreads;    // queries a block
+constexpr int kBlocksPerSM = 4;
+constexpr int kMaxSplits = 128;
+constexpr int kWindow = 8;                     // tiles kept for the rescan
 
-__global__ void nearest_partial(const float* __restrict__ query, int q,
-                                const float* __restrict__ target,
-                                const unsigned char* __restrict__ target_valid,
-                                int t, float* __restrict__ part_d2,
-                                int* __restrict__ part_idx) {
-  __shared__ float tx[kTile];
-  __shared__ float ty[kTile];
-  __shared__ float tz[kTile];
-
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool live_q = qi < q;
-  const float qx = live_q ? query[3 * qi + 0] : 0.f;
-  const float qy = live_q ? query[3 * qi + 1] : 0.f;
-  const float qz = live_q ? query[3 * qi + 2] : 0.f;
-
-  float best = INFINITY;
-  int best_idx = -1;
-  const int n_tiles = (t + kTile - 1) / kTile;
-  for (int tile = blockIdx.y; tile < n_tiles; tile += kSplits) {
-    const int base = tile * kTile;
-    __syncthreads();
-    int any = 0;
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      const int ti = base + j;
-      const bool ok = ti < t && target_valid[ti];
-      tx[j] = ok ? target[3 * ti + 0] : INFINITY;
-      ty[j] = ok ? target[3 * ti + 1] : INFINITY;
-      tz[j] = ok ? target[3 * ti + 2] : INFINITY;
-      any |= ok;
-    }
-    if (!__syncthreads_or(any)) continue;
-#pragma unroll 8
-    for (int j = 0; j < kTile; ++j) {
-      const float dx = __fsub_rn(qx, tx[j]);
-      const float dy = __fsub_rn(qy, ty[j]);
-      const float dz = __fsub_rn(qz, tz[j]);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      // +inf padding gives d2 = inf (or nan), which fails the strict <.
-      if (d2 < best) {
-        best = d2;
-        best_idx = base + j;
-      }
-    }
-  }
-  if (live_q) {
-    part_d2[blockIdx.y * q + qi] = best;
-    part_idx[blockIdx.y * q + qi] = best_idx;
-  }
+__device__ __forceinline__ float pair_d2(const float4& p, float qx, float qy, float qz) {
+  return plo::d2_rn(__fsub_rn(qx, p.x), __fsub_rn(qy, p.y), __fsub_rn(qz, p.z));
 }
 
-__global__ void nearest_merge(const float* __restrict__ part_d2,
-                              const int* __restrict__ part_idx, int q, float r2,
-                              float* __restrict__ d2, int* __restrict__ idx,
-                              unsigned char* __restrict__ valid) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
-  float best = INFINITY;
-  int best_idx = -1;
-  for (int s = 0; s < kSplits; ++s) {
-    const float v = part_d2[s * q + qi];
-    const int i = part_idx[s * q + qi];
-    // A slice that found nothing holds (inf, -1) and never wins.
-    if (i >= 0 && (v < best || (v == best && i < best_idx))) {
-      best = v;
-      best_idx = i;
+__global__ void __launch_bounds__(plo::kThreads)
+nearest_kernel(const float* __restrict__ query, int q, const float* __restrict__ target,
+               const unsigned char* __restrict__ target_valid, int t, float r2,
+               unsigned long long* __restrict__ keys, unsigned* __restrict__ tickets,
+               float* __restrict__ d2, int* __restrict__ idx,
+               unsigned char* __restrict__ valid) {
+  __shared__ plo::TileBuffers<kWindow> sm;
+
+  // best: the query's minimum d2 so far; best_idx: its index, once recovered;
+  // run_slot / run_base: the noted run (its first point's place in sm.pts
+  // and its target index), -1 when none is pending.
+  float qx[kQ], qy[kQ], qz[kQ], best[kQ];
+  int best_idx[kQ], run_slot[kQ], run_base[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    const bool live_q = qi < q;
+    qx[u] = live_q ? query[3 * qi + 0] : 0.f;
+    qy[u] = live_q ? query[3 * qi + 1] : 0.f;
+    qz[u] = live_q ? query[3 * qi + 2] : 0.f;
+    best[u] = INFINITY;
+    best_idx[u] = -1;
+    run_slot[u] = -1;
+    run_base[u] = 0;
+  }
+
+  auto body = [&](const float4* pts, int base) {
+    const int slot0 = static_cast<int>(pts - sm.pts);
+#pragma unroll 1
+    for (int g = 0; g < plo::kTile; g += 32) {
+      float run_min[kQ];
+#pragma unroll
+      for (int u = 0; u < kQ; ++u) run_min[u] = INFINITY;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const float4 p = pts[g + k];
+#pragma unroll
+        for (int u = 0; u < kQ; ++u) run_min[u] = fminf(run_min[u], pair_d2(p, qx[u], qy[u], qz[u]));
+      }
+      // +inf padding never beats: a run of it has run_min = inf.
+#pragma unroll
+      for (int u = 0; u < kQ; ++u) {
+        if (run_min[u] < best[u]) {
+          best[u] = run_min[u];
+          run_slot[u] = slot0 + g;
+          run_base[u] = base + g;
+        }
+      }
+    }
+  };
+  // The lowest position of the noted run whose d2 equals the best. Runs
+  // start 512 bytes apart, so lanes reading the same position of different
+  // runs would hit the same banks: lane l reads position (l + k) % 32 at
+  // step k, and the matches are collected as bits.
+  const int lane = threadIdx.x & 31;
+  auto rescan = [&]() {
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      if (!__any_sync(0xffffffffu, run_slot[u] >= 0)) continue;
+      const float4* run = sm.pts + max(run_slot[u], 0);
+      unsigned eq = 0u;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const int at = (lane + k) & 31;
+        if (pair_d2(run[at], qx[u], qy[u], qz[u]) == best[u]) eq |= 1u << at;
+      }
+      if (run_slot[u] >= 0) best_idx[u] = run_base[u] + __ffs(eq) - 1;
+      run_slot[u] = -1;
+    }
+  };
+  plo::stream_tiles(sm, target, target_valid, t, body, rescan);
+
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    if (qi < q && best_idx[u] >= 0) plo::fold_key(keys, qi, best[u], best_idx[u]);
+  }
+  if (!plo::last_slice(tickets)) return;
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
+    if (qi < q) {
+      const plo::Merged m = plo::merged(keys, qi);
+      d2[qi] = m.found ? m.v : INFINITY;
+      idx[qi] = m.found ? m.idx : -1;
+      valid[qi] = m.found && m.v <= r2;
     }
   }
-  d2[qi] = best;
-  idx[qi] = best_idx;
-  valid[qi] = best_idx >= 0 && best <= r2;
 }
 
 }  // namespace
 
-extern "C" int plo_nearest_splits() { return kSplits; }
+// The scratch plo_nearest takes for q queries, in 8-byte words.
+extern "C" int plo_nearest_scratch(int q) { return plo::merge_scratch_words<kBlockQ>(q); }
 
-// query [q, 3] f32; target [t, 3] f32; target_valid [t] bool; r2: the
-// radius squared in f32 (inf for no radius); part_d2/part_idx: [splits, q]
-// scratch; d2 [q] f32, idx [q] i32, valid [q] bool. Returns
-// cudaGetLastError() after the launches.
+// query [q, 3] f32; target [t, 3] f32 and target_valid [t] bool, both
+// 16-byte aligned; r2: the radius squared in f32 (inf for no radius);
+// scratch: plo_nearest_scratch(q) 8-byte words, set here before the launch;
+// d2 [q] f32, idx [q] i32, valid [q] bool.
+// Returns the first error of the memset and the launch.
 extern "C" int plo_nearest(const void* query, int q, const void* target,
-                           const void* target_valid, int t, float r2,
-                           void* part_d2, void* part_idx, void* d2, void* idx,
-                           void* valid, void* stream) {
+                           const void* target_valid, int t, float r2, void* scratch,
+                           void* d2, void* idx, void* valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((q + kThreads - 1) / kThreads, kSplits);
-  nearest_partial<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(query), q, static_cast<const float*>(target),
-      static_cast<const unsigned char*>(target_valid), t,
-      static_cast<float*>(part_d2), static_cast<int*>(part_idx));
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid((q + kBlockQ - 1) / kBlockQ, plo::splits_for<kBlockQ, kBlocksPerSM, kMaxSplits>(q));
+  unsigned long long* keys = static_cast<unsigned long long*>(scratch);
+  cudaError_t err = cudaMemsetAsync(scratch, 0xff, 8 * static_cast<size_t>(plo_nearest_scratch(q)), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nearest_merge<<<(q + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_d2), static_cast<const int*>(part_idx), q,
-      r2, static_cast<float*>(d2), static_cast<int*>(idx),
+  nearest_kernel<<<grid, plo::kThreads, 0, s>>>(
+      static_cast<const float*>(query), q, static_cast<const float*>(target),
+      static_cast<const unsigned char*>(target_valid), t, r2, keys,
+      reinterpret_cast<unsigned*>(keys + q), static_cast<float*>(d2), static_cast<int*>(idx),
       static_cast<unsigned char*>(valid));
   return static_cast<int>(cudaGetLastError());
 }

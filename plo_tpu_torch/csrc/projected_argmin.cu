@@ -29,15 +29,9 @@
 //  * The d2 gate first: for each run of 32 targets a thread records which
 //    of its pairs pass as bits, then computes the cross product and p2 for
 //    the set bits only.
-//  * One launch. Each block folds its per-query best into a 64-bit key,
-//    p2's bits above the index's: for p2 >= 0 the key orders exactly as
-//    (p2, idx) does lexicographically, so an atomicMin over the slices gives
-//    the lowest p2 and, among equal p2, the lowest index, whatever order the
-//    blocks run in (an integer min: the result is deterministic). The last
-//    block of each query block to finish (a ticket counted with atomicAdd
-//    after a __threadfence) turns the keys into proj, idx and valid. The C
-//    entry sets keys and tickets (the caller's scratch) with two memsets
-//    before the launch.
+//  * One launch: the slices' minima merge by an atomicMin on a packed
+//    (p2 bits, idx) key, and the last block of each query block writes proj,
+//    idx and valid (tile_stream.cuh's merge; one memset before the launch).
 //  * The gates eg2 and pg2 come in as f32 values the caller squared in f32
 //    (the XLA path's rounding: f32(0.8)^2 = 0.64000005, not 0.64). d2, the
 //    cross product and p2 use the _rn intrinsics in the plain version's
@@ -55,7 +49,6 @@ constexpr int kQ = 4;                          // queries a thread
 constexpr int kBlockQ = kQ * plo::kThreads;    // queries a block
 constexpr int kBlocksPerSM = 4;
 constexpr int kMaxSplits = 128;
-constexpr unsigned long long kNoKey = ~0ull;
 
 __global__ void __launch_bounds__(plo::kThreads)
 projected_kernel(const float* __restrict__ query, const float* __restrict__ normal, int q,
@@ -64,8 +57,7 @@ projected_kernel(const float* __restrict__ query, const float* __restrict__ norm
                  float pg2, unsigned long long* __restrict__ keys,
                  unsigned* __restrict__ tickets, float* __restrict__ proj,
                  int* __restrict__ idx, unsigned char* __restrict__ valid) {
-  __shared__ plo::TileBuffers sm;
-  __shared__ bool last;
+  __shared__ plo::TileBuffers<> sm;
 
   float qx[kQ], qy[kQ], qz[kQ], nx[kQ], ny[kQ], nz[kQ], best[kQ];
   int best_idx[kQ];
@@ -118,58 +110,45 @@ projected_kernel(const float* __restrict__ query, const float* __restrict__ norm
 #pragma unroll
   for (int u = 0; u < kQ; ++u) {
     const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
-    if (qi < q && best_idx[u] >= 0) {
-      // p2 >= 0, so its bits order as its value.
-      atomicMin(&keys[qi], (static_cast<unsigned long long>(__float_as_uint(best[u])) << 32) |
-                               static_cast<unsigned>(best_idx[u]));
-    }
+    if (qi < q && best_idx[u] >= 0) plo::fold_key(keys, qi, best[u], best_idx[u]);
   }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!plo::last_slice(tickets)) return;
 #pragma unroll
   for (int u = 0; u < kQ; ++u) {
     const int qi = blockIdx.x * kBlockQ + u * plo::kThreads + threadIdx.x;
     if (qi < q) {
-      const unsigned long long key = __ldcg(&keys[qi]);  // from L2, where the atomics ran
-      const bool found = key != kNoKey;
-      proj[qi] = found ? __fsqrt_rn(__uint_as_float(static_cast<unsigned>(key >> 32)))
-                       : INFINITY;
-      idx[qi] = found ? static_cast<int>(key & 0xffffffffu) : -1;
-      valid[qi] = found;
+      const plo::Merged m = plo::merged(keys, qi);
+      proj[qi] = m.found ? __fsqrt_rn(m.v) : INFINITY;
+      idx[qi] = m.found ? m.idx : -1;
+      valid[qi] = m.found;
     }
   }
 }
 
 }  // namespace
 
-// The number of query blocks for q queries: the size of the ticket scratch.
-extern "C" int plo_projected_blocks(int q) { return (q + kBlockQ - 1) / kBlockQ; }
+// The scratch plo_projected_argmin takes for q queries, in 8-byte words.
+extern "C" int plo_projected_scratch(int q) { return plo::merge_scratch_words<kBlockQ>(q); }
 
 // query, normal [q, 3] f32; target [t, 3] f32 and target_valid [t] bool,
-// both 16-byte aligned; eg2, pg2: the squared gates in f32; keys [q] u64
-// and tickets [plo_projected_blocks(q)] u32: scratch, set here before the
-// launch; proj [q] f32, idx [q] i32, valid [q] bool.
-// Returns the first error of the memsets and the launch.
+// both 16-byte aligned; eg2, pg2: the squared gates in f32; scratch:
+// plo_projected_scratch(q) 8-byte words, set here before the launch;
+// proj [q] f32, idx [q] i32, valid [q] bool.
+// Returns the first error of the memset and the launch.
 extern "C" int plo_projected_argmin(const void* query, const void* normal, int q,
                                     const void* target, const void* target_valid,
-                                    int t, float eg2, float pg2, void* keys,
-                                    void* tickets, void* proj, void* idx,
-                                    void* valid, void* stream) {
+                                    int t, float eg2, float pg2, void* scratch, void* proj,
+                                    void* idx, void* valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(plo_projected_blocks(q), plo::splits_for<kBlockQ, kBlocksPerSM, kMaxSplits>(q));
-  cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * q, s);  // kNoKey
-  if (err == cudaSuccess) err = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * grid.x, s);
+  const dim3 grid((q + kBlockQ - 1) / kBlockQ, plo::splits_for<kBlockQ, kBlocksPerSM, kMaxSplits>(q));
+  unsigned long long* keys = static_cast<unsigned long long*>(scratch);
+  cudaError_t err = cudaMemsetAsync(scratch, 0xff, 8 * static_cast<size_t>(plo_projected_scratch(q)), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   projected_kernel<<<grid, plo::kThreads, 0, s>>>(
       static_cast<const float*>(query), static_cast<const float*>(normal), q,
       static_cast<const float*>(target),
-      static_cast<const unsigned char*>(target_valid), t, eg2, pg2,
-      static_cast<unsigned long long*>(keys), static_cast<unsigned*>(tickets),
-      static_cast<float*>(proj), static_cast<int*>(idx),
+      static_cast<const unsigned char*>(target_valid), t, eg2, pg2, keys,
+      reinterpret_cast<unsigned*>(keys + q), static_cast<float*>(proj), static_cast<int*>(idx),
       static_cast<unsigned char*>(valid));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// tile_stream.cuh — what the pair kernels (cylinder_stats.cu,
+// tile_stream.cuh — what the pair kernels (nearest.cu, cylinder_stats.cu,
 // projected_argmin.cu) share: the stream of one block's share of a padded
-// target cloud through shared memory, the slice count, and the d2 gate of a
-// run of 32 targets recorded as bits.
+// target cloud through shared memory, the slice count, the d2 gate of a run
+// of 32 targets recorded as bits, and the one-launch merge of the slices'
+// per-query minima (nearest, projected_argmin).
 //
 // The target is [T, 3] f32 rows with a [T] bool mask; the port's clouds keep
 // their valid points in a prefix of T slots and pad the rest. The target is
@@ -17,6 +18,9 @@
 //  3. unpacks each landed tile into float4 points (x, y, z, 0), +inf where
 //     the slot is invalid, so that the pair loop reads a point with one
 //     16-byte shared load and an invalid slot fails every distance gate.
+//     The unpacked points of the last kWindow tiles stay in shared memory,
+//     so that a kernel can look at a window of tiles again after their
+//     bodies ran (nearest.cu's rescan).
 // Requires: blockDim.x == kThreads; target and mask 16-byte aligned (the
 // wrappers in ops/cuda_nn.py see to it).
 #pragma once
@@ -32,10 +36,13 @@ constexpr int kThreads = 128;  // threads per block of the pair kernels
 constexpr int kXyzChunks = kTile * 3 * 4 / 16;   // 16-byte copies of a tile's rows
 constexpr int kMaskChunks = kTile / 16;          // ... and of its mask
 
+// kWindow: how many unpacked tiles pts holds (the k-th live tile of a batch
+// lands at pts + (k % kWindow) * kTile).
+template <int kWindow = 1>
 struct __align__(16) TileBuffers {
   float xyz[2][kTile * 3];           // landed rows, as in device memory
   unsigned char valid[2][kTile];     // landed mask bytes, 0 past the end
-  float4 pts[kTile];                 // the tile being computed
+  float4 pts[kWindow * kTile];       // the window of unpacked tiles
   int list[kThreads];                // live tiles of the current batch
   unsigned warp_live[kThreads / 32];
 };
@@ -99,7 +106,8 @@ __device__ __forceinline__ bool any_valid(const unsigned char* __restrict__ vali
 // Lists in sm.list, in ascending order, the live tiles among this block's
 // candidates c0 .. c0 + kThreads - 1 (candidate c is tile first + c * stride).
 // Returns their number; every thread gets the same.
-__device__ __forceinline__ int collect_live(TileBuffers& sm,
+template <class Buffers>
+__device__ __forceinline__ int collect_live(Buffers& sm,
                                             const unsigned char* __restrict__ valid,
                                             int end, int first, int stride, int n_tiles,
                                             int c0) {
@@ -129,7 +137,8 @@ __device__ __forceinline__ int collect_live(TileBuffers& sm,
 
 // Starts the copy of tile `tile` (targets [b0, min(b0 + kTile, end))) into
 // buffer `buf`; what lies past `end` lands as zeros, so its mask reads 0.
-__device__ __forceinline__ void stage(TileBuffers& sm, int buf,
+template <class Buffers>
+__device__ __forceinline__ void stage(Buffers& sm, int buf,
                                       const float* __restrict__ target,
                                       const unsigned char* __restrict__ valid,
                                       int tile, int end) {
@@ -149,22 +158,78 @@ __device__ __forceinline__ void stage(TileBuffers& sm, int buf,
   }
 }
 
-// The landed buffer `buf` as float4 points, +inf where invalid.
-__device__ __forceinline__ void unpack(TileBuffers& sm, int buf) {
+// The landed buffer `buf` as float4 points at pts, +inf where invalid.
+template <class Buffers>
+__device__ __forceinline__ void unpack(Buffers& sm, int buf, float4* pts) {
   for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    sm.pts[j] = sm.valid[buf][j]
+    pts[j] = sm.valid[buf][j]
                     ? make_float4(sm.xyz[buf][3 * j], sm.xyz[buf][3 * j + 1],
                                   sm.xyz[buf][3 * j + 2], 0.f)
                     : make_float4(INFINITY, INFINITY, INFINITY, 0.f);
   }
 }
 
+// The one-launch merge of per-slice minima. Each block folds its per-query
+// best (v >= 0, idx) into keys[qi] with an atomicMin on v's bits above
+// idx's: for v >= 0 the key orders exactly as (v, idx) does
+// lexicographically, so the slices' merge is the lowest v and, among equal v,
+// the lowest index, whatever order the blocks run in (an integer min: the
+// result is deterministic). The last block of each query block to finish (a
+// ticket counted with atomicAdd after a __threadfence) reads the keys.
+// keys [q] and one ticket per query block share the caller's scratch, which
+// the C entry sets to all ones with one memset before the launch: kNoKey,
+// and tickets that start at ~0u.
+constexpr unsigned long long kNoKey = ~0ull;
+
+// The scratch of q queries in query blocks of kBlockQ, in 8-byte words.
+template <int kBlockQ>
+int merge_scratch_words(int q) { return q + ((q + kBlockQ - 1) / kBlockQ + 1) / 2; }
+
+__device__ __forceinline__ void fold_key(unsigned long long* keys, int qi, float v, int idx) {
+  atomicMin(&keys[qi], (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
+                           static_cast<unsigned>(idx));
+}
+
+// Whether this block is the last of its query block's gridDim.y slices to
+// finish; every thread calls it after its fold_keys. Block-uniform.
+__device__ __forceinline__ bool last_slice(unsigned* tickets) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  // Tickets start at ~0u, so the last of gridDim.y arrivals reads gridDim.y - 2 (mod 2^32).
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 2u;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The merged key of query qi (read from L2, where the atomics ran): whether
+// any slice folded one, and its value and index.
+struct Merged {
+  bool found;
+  float v;
+  int idx;
+};
+__device__ __forceinline__ Merged merged(const unsigned long long* keys, int qi) {
+  const unsigned long long key = __ldcg(&keys[qi]);
+  return {key != kNoKey, __uint_as_float(static_cast<unsigned>(key >> 32)),
+          static_cast<int>(key & 0xffffffffu)};
+}
+
+struct NoFlush {
+  __device__ void operator()() const {}
+};
+
 // Calls body(pts, base) for each live tile of this block's slice of targets
-// [0, end), in ascending order; pts[j] is target base + j.
-template <class Body>
-__device__ __forceinline__ void stream_tiles(TileBuffers& sm, const float* __restrict__ target,
+// [0, end), in ascending order; pts[j] is target base + j, and pts lies in
+// sm.pts. Calls flush() after the body of the last tile of each window of
+// kWindow tiles and of each batch of live tiles, while the window's tiles
+// are still in sm.pts; the window is rewritten only after a __syncthreads.
+template <int kWindow, class Body, class Flush = NoFlush>
+__device__ __forceinline__ void stream_tiles(TileBuffers<kWindow>& sm,
+                                             const float* __restrict__ target,
                                              const unsigned char* __restrict__ valid,
-                                             int end, Body& body) {
+                                             int end, Body& body, Flush&& flush = Flush{}) {
   const int first = blockIdx.y;
   const int stride = gridDim.y;
   const int n_tiles = (end + kTile - 1) / kTile;
@@ -179,9 +244,11 @@ __device__ __forceinline__ void stream_tiles(TileBuffers& sm, const float* __res
       cp_async_commit();   // an empty group after the last tile
       cp_async_wait<1>();  // tile k has landed (this thread's copies)
       __syncthreads();     // ... everyone's; and everyone is done with tile k-1
-      unpack(sm, k & 1);
+      float4* pts = sm.pts + (k % kWindow) * kTile;
+      unpack(sm, k & 1, pts);
       __syncthreads();
-      body(sm.pts, sm.list[k] * kTile);
+      body(pts, sm.list[k] * kTile);
+      if (k % kWindow == kWindow - 1 || k + 1 == n_live) flush();
     }
     __syncthreads();  // the next batch rewrites list and pts
   }

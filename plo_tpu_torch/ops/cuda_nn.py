@@ -38,8 +38,9 @@ SOURCES = ("nearest.cu", "projected_argmin.cu", "cylinder_stats.cu", "fps_ranks.
 HEADERS = ("cp_async.cuh", "tile_stream.cuh")
 LIBRARY = os.path.join(BUILD_DIR, "libplo_kernels.so")
 
-# fps_ranks keeps a bin's x, y, z and min-d2 in shared memory (16 B a slot),
-# within the 48 KB a block gets without opting in to more.
+# fps_ranks keeps a bin's slots in registers, at most 6 a thread of 512, and a
+# copy of its rows in shared memory (12 B a slot, within the 48 KB a block
+# gets without opting in to more).
 FPS_MAX_SLOTS = 3072
 
 LAUNCHES = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
@@ -103,14 +104,14 @@ def library() -> ctypes.CDLL:
                 build()
             lib = ctypes.CDLL(LIBRARY)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.plo_nearest_splits.argtypes = []
-            lib.plo_nearest_splits.restype = ci
-            lib.plo_nearest.argtypes = [vp, ci, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp]
+            lib.plo_nearest_scratch.argtypes = [ci]
+            lib.plo_nearest_scratch.restype = ci
+            lib.plo_nearest.argtypes = [vp, ci, vp, vp, ci, cf, vp, vp, vp, vp, vp]
             lib.plo_nearest.restype = ci
-            lib.plo_projected_blocks.argtypes = [ci]
-            lib.plo_projected_blocks.restype = ci
+            lib.plo_projected_scratch.argtypes = [ci]
+            lib.plo_projected_scratch.restype = ci
             lib.plo_projected_argmin.argtypes = [vp, vp, ci, vp, vp, ci, cf, cf,
-                                                 vp, vp, vp, vp, vp, vp]
+                                                 vp, vp, vp, vp, vp]
             lib.plo_projected_argmin.restype = ci
             lib.plo_cylinder_splits.argtypes = [ci]
             lib.plo_cylinder_splits.restype = ci
@@ -212,13 +213,12 @@ def nearest(query: torch.Tensor, target: torch.Tensor, target_valid: torch.Tenso
     if q == 0:
         return d2, idx, valid
     lib = library()
-    splits = lib.plo_nearest_splits()
-    part_d2 = torch.empty((splits, q), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, q), dtype=torch.int32, device=dev)
+    target, target_valid = _aligned16(target), _aligned16(target_valid)
+    scratch = torch.empty(lib.plo_nearest_scratch(q), dtype=torch.int64, device=dev)
     err = lib.plo_nearest(
         query.data_ptr(), q, target.data_ptr(), target_valid.data_ptr(), t,
-        f32_square(radius), part_d2.data_ptr(), part_idx.data_ptr(), d2.data_ptr(),
-        idx.data_ptr(), valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        f32_square(radius), scratch.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "nearest")
     LAUNCHES["nearest"] += 1
     return d2, idx, valid
@@ -287,13 +287,12 @@ def projected_argmin(query: torch.Tensor, query_normal: torch.Tensor, target: to
         return proj, idx, valid
     lib = library()
     target, target_valid = _aligned16(target), _aligned16(target_valid)
-    keys = torch.empty(q, dtype=torch.int64, device=dev)
-    tickets = torch.empty(lib.plo_projected_blocks(q), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.plo_projected_scratch(q), dtype=torch.int64, device=dev)
     err = lib.plo_projected_argmin(
         query.data_ptr(), query_normal.data_ptr(), q, target.data_ptr(),
         target_valid.data_ptr(), t, f32_square(euclid_gate), f32_square(proj_gate),
-        keys.data_ptr(), tickets.data_ptr(), proj.data_ptr(), idx.data_ptr(),
-        valid.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), proj.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "projected_argmin")
     LAUNCHES["projected_argmin"] += 1
     return proj, idx, valid

@@ -13,6 +13,8 @@ exactly (the same elementwise f32 operations on both devices); a default
 frame's poses on the card within 2 mm / 1e-4 rad of the CPU's (f32
 reductions and transcendental functions round differently on the two
 devices; the bound of the resume test in tests/test_torch_odometry.py)."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -65,6 +67,67 @@ def test_gpu_fps_ranks_kernel_matches_plain(gen, cuda, steps):
     torch.cuda.synchronize()
     assert cuda_nn.LAUNCHES["fps_ranks"] == 1
     assert torch.equal(r, cuda_nn.fps_ranks_plain(xyz, occ, s, 200))
+
+
+# fps_ranks at the edges of its design: slots in registers (up to 6 a
+# thread of 512), ties to the lowest slot within a thread, a warp and the block, the
+# seed, and the early exit when a bin has no candidate left.
+FPS_EDGES = {
+    "every point of a bin identical": dict(identical=True),
+    "pairs of duplicated points": dict(pairs=True),
+    "steps = 0": dict(steps=0),
+    "steps = 1": dict(steps=1),
+    "steps above a bin's occupancy": dict(fill=50),
+    "one occupied slot": dict(one=True),
+    "an empty bin": dict(empty=True),
+    "C = 33": dict(c=33),
+    "C = 1000": dict(c=1000),
+    "C = 3072": dict(c=3072),
+    "B = 1": dict(b=1),
+}
+
+
+def _fps_inputs(gen, cuda, b=8, c=1024, steps=200, identical=False, pairs=False, fill=None,
+                one=False, empty=False):
+    xyz = gen.uniform(-20, 20, (b, c, 3)).astype(np.float32)
+    occ = (gen.random((b, c)) < 0.8).astype(np.float32)
+    if identical:
+        xyz[0] = xyz[0, 0]
+        occ[0] = 1.0
+    if pairs:
+        xyz[:, c // 2:2 * (c // 2)] = xyz[:, :c // 2]
+    if fill is not None:
+        occ[:] = np.arange(c) < fill
+    if one:
+        occ[0] = 0.0
+        occ[0, c - 1] = 1.0
+    if empty:
+        occ[0] = 0.0
+    return (torch.from_numpy(xyz).to(cuda), torch.from_numpy(occ).to(cuda),
+            torch.tensor(steps, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(FPS_EDGES))
+def test_gpu_fps_ranks_edges(gen, cuda, edge):
+    xyz, occ, s = _fps_inputs(gen, cuda, **FPS_EDGES[edge])
+    cuda_nn.reset_launches()
+    r = cuda_nn.fps_ranks(xyz, occ, s, 200)
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["fps_ranks"] == 1
+    ref = cuda_nn.fps_ranks_plain(xyz, occ, s, 200)
+    assert torch.equal(r, ref)
+    ref = ref.cpu()
+    if edge == "every point of a bin identical":   # every step ties at 0: slot order
+        assert torch.equal(ref[0, :200], torch.arange(200, dtype=torch.int32))
+    if edge == "steps = 0":
+        assert int((ref < 200).sum()) == int((occ.sum(1) > 0).sum())
+    if edge == "steps above a bin's occupancy":
+        assert bool((ref[:, :50] < 50).all()) and bool((ref[:, 50:] == 200).all())
+    if edge == "one occupied slot":
+        assert int(ref[0, -1]) == 0 and bool((ref[0, :-1] == 200).all())
+    if edge == "an empty bin":
+        assert bool((ref[0] == 200).all())
 
 
 def _anchor_inputs(gen, cuda, q=2000, t=20000, live=9000):
@@ -142,9 +205,10 @@ EDGES = {
 
 
 def _edge_inputs(gen, cuda, q=600, t=5000, live=4000, t_live=None, all_invalid=False,
-                 dup=False, on_target=False):
+                 dup=False, on_target=False, repeat=0):
     tgt = np.zeros((t, 3), np.float32)
     tgt[:live] = gen.uniform(-6, 6, (live, 3)).astype(np.float32)
+    tgt[live - repeat:live] = tgt[:repeat]
     if dup:
         tgt[:] = tgt[0]
     tv = np.arange(t) < live
@@ -193,6 +257,41 @@ def test_gpu_projected_argmin_edges(gen, cuda, edge):
         assert bool((out[1][:300] == 0).all())
     if edge == "all-invalid targets":
         assert bool((out[1] == -1).all())
+
+
+# nearest beyond EDGES: the radius at inf and at 0, a target that is a view 12
+# bytes past its allocation (the wrapper copies it to a 16-byte boundary),
+# and so many queries that each block streams several windows of tiles, with
+# the first 3,000 targets repeated at the end of the valid prefix (ties
+# across windows and slices).
+NEAREST_EDGES = {**EDGES, "radius inf": dict(on_target=True), "radius 0": dict(on_target=True),
+                 "unaligned target": dict(on_target=True),
+                 "many windows a block": dict(q=20000, t=131072, live=100000, repeat=3000,
+                                              on_target=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", list(NEAREST_EDGES))
+def test_gpu_nearest_edges(gen, cuda, edge):
+    (query, _, tgt, tv), _ = _edge_inputs(gen, cuda, **NEAREST_EDGES[edge])
+    radius = {"radius inf": math.inf, "radius 0": 0.0}.get(edge, 1.5)
+    if edge == "unaligned target":
+        tgt, tv = tgt[1:], tv[1:]
+        assert tgt.data_ptr() % 16 != 0
+    cuda_nn.reset_launches()
+    for _ in range(2):   # the second launch finds the merge state the first left
+        out = cuda_nn.nearest(query, tgt, tv, radius)
+        torch.cuda.synchronize()
+        _assert_same(out, cuda_nn.nearest_plain(query, tgt, tv, radius))
+    assert cuda_nn.LAUNCHES["nearest"] == 2
+    if edge == "12 duplicated targets":
+        assert bool((out[1] == 0).all())
+    if edge == "all-invalid targets":
+        assert bool((out[1] == -1).all())
+    if edge == "radius inf":
+        assert bool(out[2].all())
+    if edge == "radius 0":   # exactly the queries on a target
+        assert bool(torch.equal(out[2], out[0] == 0)) and 0 < int(out[2].sum()) < query.shape[0]
 
 
 @pytest.mark.gpu
