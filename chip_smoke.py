@@ -30,7 +30,14 @@ traceback, and a watchdog turns a hang into the same:
      5. B2, the same with plane_ICP.use_projected_distance enabled:
         projected_argmin must launch once per ICP iteration;
      on each, every pose must be finite and the ATE against the ground truth
-     below 0.1 m (the bound of tests/test_odometry.py).
+     below 0.1 m (the bound of tests/test_odometry.py);
+  6. the headline path: bench.py's config (range_image/pca normals, random
+     sampling, frozen IMLS, RANSAC/DRPM) at capacity 57600 on the same
+     frames through Odometry.process_scans(batch=4) (frame 0 alone, frames
+     2-5 as one batch), for the int16 and the grid16 transfer: every pose
+     finite, ATE below 0.1 m, and no launch of any of the four kernels (the
+     path reaches none, so a launch is a silent reroute); then float32
+     process_scans bit-identical to a process_scan loop on the card.
 With --baseline DIR (an older checkout, e.g. `git archive` of a parent
 commit unpacked into a git-ignored directory), each call that phases 2 and
 2b time (MAIN_CALLS) is also made with DIR's function of the same name and
@@ -74,6 +81,7 @@ GATE_INSTR_PER_PAIR = 10     # lane-instructions a pair of the pair kernels issu
 H100_LANE_INSTR_PER_S = 132 * 128 * 1.98e9  # 132 SMs x 4 schedulers x 32 lanes at 1.98 GHz
 SPIN_CYCLES_PER_MS = 2.0e6   # torch.cuda._sleep cycles a millisecond, at most (1.98 GHz)
 ATE_BOUND_M = 0.1
+HEADLINE_BATCH = 4                 # phase 6: frame 0 alone, frames 2-5 as one batch
 
 # The call of each function that phases 2 and 2b time, as label ->
 # (module under plo_tpu_torch/ops, function name, args, kwargs): what
@@ -540,6 +548,59 @@ def phase_path(dev, name, cfg, scans, gt, expect):
     return launches
 
 
+def phase_headline(dev, scans, gt):
+    """Phase 6 (see the module docstring). Returns the launch counts."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch.bench import CAPACITY as HEADLINE_CAPACITY, headline_config
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.utils import evaluate
+
+    cfg = headline_config(N_SCANS, 360.0 / AZIMUTH_STEPS)
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    torch.cuda.synchronize()
+    cuda_nn.reset_launches()
+    for transfer in ("int16", "grid16"):
+        odo = Odometry(cfg, capacity=HEADLINE_CAPACITY, seed=0, device=dev, async_mode=True,
+                       transfer=transfer)
+        walls = []
+        for part in (scans[:1], scans[1:]):   # frame 0 alone, then frames 2-5 as one batch
+            t = time.perf_counter()
+            odo.process_scans(part, batch=HEADLINE_BATCH)
+            odo.sync()
+            walls.append(1e3 * (time.perf_counter() - t))
+        frames = odo.finalize()
+        est = odo.poses()
+        if not np.isfinite(est).all():
+            raise AssertionError(f"headline {transfer}: non-finite pose")
+        ate = evaluate.ate_rmse(est, gt_rel, align=False)
+        print(f"headline {transfer}: frame 0 {walls[0]:.1f} ms, frames 2-5 (one batch) "
+              f"{walls[1]:.1f} ms = {walls[1] / (len(scans) - 1):.1f} ms a frame; ATE {ate:.4f} m, "
+              f"ICP iterations {[f.iterations for f in frames]}, "
+              f"sampled {[int(f.stats['n_sampled']) for f in frames]}", flush=True)
+        if not ate < ATE_BOUND_M:
+            raise AssertionError(f"headline {transfer}: ATE {ate} m >= {ATE_BOUND_M} m")
+    loop = Odometry(cfg, capacity=HEADLINE_CAPACITY, seed=0, device=dev, transfer="float32")
+    for s in scans:
+        loop.process_scan(s)
+    batched = Odometry(cfg, capacity=HEADLINE_CAPACITY, seed=0, device=dev, async_mode=True,
+                       transfer="float32")
+    batched.process_scans(scans, batch=HEADLINE_BATCH)
+    same = np.array_equal(batched.poses(), loop.poses()) and all(
+        (a.iterations, a.n_correspondences, a.stats) == (b.iterations, b.n_correspondences, b.stats)
+        for a, b in zip(batched.trajectory, loop.trajectory))
+    print(f"headline float32: process_scans {'bit-identical' if same else 'DIFFERS from'} "
+          f"the process_scan loop", flush=True)
+    if not same:
+        raise AssertionError("headline: float32 process_scans differs from the process_scan loop")
+    launches = dict(cuda_nn.LAUNCHES)
+    print(f"headline: launches {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"headline: the path launched a kernel: {launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of plo_tpu_torch on one CUDA card.")
     ap.add_argument("--baseline", default=None, metavar="DIR",
@@ -566,6 +627,7 @@ def main(argv=None):
                               lambda it: {**zero, "cylinder_stats": frames, "fps_ranks": frames}),
         "B1": phase_path(dev, "B1", b1, scans, gt, lambda it: {**zero, "nearest": it}),
         "B2": phase_path(dev, "B2", b2, scans, gt, lambda it: {**zero, "projected_argmin": it}),
+        "headline": phase_headline(dev, scans, gt),
     }
     main_path = {"nearest": "B1", "projected_argmin": "B2",
                  "cylinder_stats": "default", "fps_ranks": "default"}

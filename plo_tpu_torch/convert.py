@@ -47,17 +47,21 @@ def cloud_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PointCloud:
 
 
 def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.ndarray],
-                              cloud_queue: Iterable[Mapping[str, np.ndarray]],
                               frame_count: int, last_rel: Optional[np.ndarray],
-                              trajectory: Iterable[Mapping[str, Any]]) -> Odometry:
+                              trajectory: Iterable[Mapping[str, Any]],
+                              cloud_queue: Iterable[Mapping[str, np.ndarray]] = (),
+                              window: Optional[Mapping[str, np.ndarray]] = None) -> Odometry:
     """Load a JAX Odometry's carried state into a port Odometry so that the
-    next `process_scan` resumes where JAX stopped: the last filtered cloud
-    (major-axis sampling's reference), the target window, the frame count,
+    next `process_scan` or `process_scans` resumes where JAX stopped: the
+    last filtered cloud (major-axis sampling's reference), the target window
+    (`cloud_queue`, or after a batched JAX run, whose queue is empty, the
+    stacked [K, P] `window` its `_window_state()` returns), the frame count,
     the last relative pose (the motion prior's init) and the float64
     trajectory (`dataclasses.asdict` of its OdometryFrames)."""
     dev = odo.device
     odo.last_filtered = cloud_from_numpy(last_filtered, dev)
     odo.cloud_queue = deque(cloud_from_numpy(c, dev) for c in cloud_queue)
+    odo._device_window = None if window is None else cloud_from_numpy(window, dev)
     odo.frame_count = int(frame_count)
     odo._last_rel = (None if last_rel is None else
                      torch.as_tensor(np.asarray(last_rel, np.float32), device=dev))

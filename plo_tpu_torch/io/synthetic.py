@@ -158,13 +158,16 @@ def synthetic_sequence(
     sensor_height: float = 1.7,
     seed: int = 0,
     world: Optional[SyntheticWorld] = None,
+    workers: int = 1,
 ) -> Tuple[List[np.ndarray], np.ndarray]:
     """Generate a sequence of scans plus ground-truth poses [n_frames, 4, 4].
 
     The sensor drives forward at `speed` m/frame with yaw rate `yaw_rate`
     rad/frame; both may be scalars or per-frame arrays (a standstill-start
     ramp, 90-degree corners, loop-closing rectangles — the KITTI-protocol
-    drill builds its turns-and-revisit path this way).
+    drill builds its turns-and-revisit path this way). `workers` > 1 renders
+    the scans in that many processes (each scan has its own seed, so the
+    result is the same).
     """
     # Trajectory first, so a generated world can be carved around it.
     speeds = np.broadcast_to(np.asarray(speed, np.float64), (n_frames,))
@@ -181,9 +184,16 @@ def synthetic_sequence(
         yaw += yaw_rates[i]
     if world is None:
         world = SyntheticWorld.around_path(poses[:, :2, 3], seed=seed)
-    scans = [
-        render_scan(world, poses[i], n_scans=n_scans, azimuth_steps=azimuth_steps,
-                    seed=seed + i)
-        for i in range(n_frames)
-    ]
+    jobs = [dict(world=world, pose=poses[i], n_scans=n_scans, azimuth_steps=azimuth_steps,
+                 seed=seed + i) for i in range(n_frames)]
+    if workers > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            scans = pool.map(_render, jobs)
+    else:
+        scans = [_render(j) for j in jobs]
     return scans, poses
+
+
+def _render(job: dict) -> np.ndarray:
+    return render_scan(**job)

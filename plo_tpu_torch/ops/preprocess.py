@@ -1,6 +1,6 @@
-"""Stage 1 — range gating, ring assignment, relative time and the ring-sorted
-compaction (the port of plo_tpu/ops/preprocess.py, scan_registration.cpp:
-847-1113).
+"""Stage 1 — range gating, ring assignment, relative time, the ring-sorted
+compaction and the range-image rasterization (the port of
+plo_tpu/ops/preprocess.py, scan_registration.cpp:847-1113).
 
 Points are stable-sorted by ring (arrival order kept within a ring) into one
 padded array with per-ring start/count tables; padding and dropped points
@@ -27,6 +27,26 @@ VLP32C_ANGLES = np.array(
      -0.667, -0.333, 0.000, 0.333, 0.667, 1.000, 1.333, 1.667, 2.333],
     dtype=np.float32,
 )
+
+
+def ring_elevation_table(n_scans: int) -> np.ndarray:
+    """Ring/row index -> beam elevation (degrees) of the ring model that ring
+    assignment and the grid16 rasterizer bin with, so grid16 reconstruction
+    inverts exactly that model (plo_tpu.ops.preprocess.ring_elevation_table).
+
+    16: -15 + 2k (scan_registration.cpp:948-958); 32: the 27-entry VLP-32C
+    table (:960-964) padded to 32 rows that ring assignment never produces;
+    64: the HDL-64 piecewise formula (:990-1003), rings 51-63 stay empty."""
+    if n_scans == 16:
+        return (-15.0 + 2.0 * np.arange(16)).astype(np.float32)
+    if n_scans == 32:
+        pad = VLP32C_ANGLES[-1] + 0.333 * (1 + np.arange(32 - len(VLP32C_ANGLES)))
+        return np.concatenate([VLP32C_ANGLES, pad.astype(np.float32)])
+    if n_scans == 64:
+        upper = 2.0 - np.arange(32) / 3.0
+        lower = -8.83 - np.arange(32) / 2.0
+        return np.concatenate([upper, lower]).astype(np.float32)
+    raise ValueError(f"unsupported n_scans {n_scans}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +126,13 @@ def relative_times(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return (ori - start_ori) / (end_ori - start_ori).clamp_min(1e-9)
 
 
-def preprocess(pts: torch.Tensor, n_valid: int, sensor: SensorConfig) -> RingCloud:
+def preprocess(pts: torch.Tensor, n_valid: int, sensor: SensorConfig,
+               sort: bool = True) -> RingCloud:
     """Stage-1 preprocessing of one padded raw scan [P, >=3] whose first
-    `n_valid` rows are returns (plo_tpu.ops.preprocess.preprocess, sort=True)."""
+    `n_valid` rows are returns (plo_tpu.ops.preprocess.preprocess).
+
+    sort=False keeps the arrival order (ring id n_scans on dropped points,
+    pos_in_ring zero): for consumers that only rasterize."""
     p = pts.shape[0]
     dev = pts.device
     n_scans = sensor.n_scans
@@ -125,21 +149,60 @@ def preprocess(pts: torch.Tensor, n_valid: int, sensor: SensorConfig) -> RingClo
     ring, valid = assign_rings(xyz, valid, n_scans)
     rel_time = torch.where(valid, relative_times(xyz, valid), 0.0)
 
-    # Stable sort by ring id (padding -> n_scans, sorted last): within a ring
-    # the arrival order is kept — the reference's per-ring push_back +
-    # concatenation order (:1064-1069).
     ring_u = torch.where(valid, ring, n_scans)
-    ring_s, order = torch.sort(ring_u, stable=True)
     counts_full = torch.bincount(ring_u, minlength=n_scans + 1)
     starts_full = torch.cumsum(counts_full, 0) - counts_full
-    pos_in_ring = torch.arange(p, device=dev) - starts_full[ring_s]
-
-    xyz_s = xyz[order]
-    rel_s = rel_time[order]
-    valid_s = valid[order]
+    if sort:
+        # Stable sort by ring id (padding -> n_scans, sorted last): within a
+        # ring the arrival order is kept — the reference's per-ring
+        # push_back + concatenation order (:1064-1069).
+        ring_s, order = torch.sort(ring_u, stable=True)
+        pos_in_ring = torch.arange(p, device=dev) - starts_full[ring_s]
+        xyz_s, rel_s, valid_s = xyz[order], rel_time[order], valid[order]
+    else:
+        ring_s, xyz_s, rel_s, valid_s = ring_u, xyz, rel_time, valid
+        pos_in_ring = torch.zeros(p, dtype=torch.int64, device=dev)
     intensity = ring_s.to(torch.float32) + 0.1 * rel_s
     return RingCloud(
         xyz=xyz_s, ring=ring_s, rel_time=rel_s,
         intensity=torch.where(valid_s, intensity, 0.0), valid=valid_s,
         ring_start=starts_full[:n_scans], ring_count=counts_full[:n_scans],
         pos_in_ring=pos_in_ring)
+
+
+def rasterize_range_image(cloud: RingCloud, height: int, width: int):
+    """Scatter-min fill of the dense range image (scan_registration.cpp:
+    1045-1057; plo_tpu.ops.preprocess.rasterize_range_image). col =
+    floor(relTime * width) clipped; the stored value is the reference's 2D
+    range sqrt(x^2 + y^2).
+
+    Among the points that tie at a cell's minimum the one with the largest
+    index wins, the point XLA's scatter keeps on the CPU; choosing it with
+    one amax scatter makes the write unique, so the card gives the same
+    grid. Returns (rng2d [H, W] with +inf holes, xyz [H, W, 3], rel_time
+    [H, W], occupied [H, W], src_idx [H, W] index of the winning point)."""
+    hw = height * width
+    dev = cloud.xyz.device
+    col = (cloud.rel_time * width).to(torch.int64).clamp(0, width - 1)
+    row = cloud.ring.clamp(0, height - 1)
+    cell = torch.where(cloud.valid, row * width + col, hw)
+    x, y = cloud.xyz[:, 0], cloud.xyz[:, 1]
+    # As XLA computes it: x*x + y*y contracted into fma(x, x, y*y) (the f64
+    # product of two f32 is exact), then a correctly rounded f32 root (the
+    # f64 root of an f32 rounds to it exactly), the same on every device.
+    xd = x.double()
+    r2 = (xd * xd + (y * y).double()).float()
+    rng2d = torch.sqrt(r2.double()).float()
+    inf = torch.full((hw + 1,), math.inf, dtype=torch.float32, device=dev)
+    flat = inf.scatter_reduce(0, cell, torch.where(cloud.valid, rng2d, math.inf), "amin")
+    is_winner = cloud.valid & (rng2d <= flat[cell])
+    idx = torch.arange(cloud.capacity, device=dev)
+    none = torch.full((hw + 1,), -1, dtype=torch.int64, device=dev)
+    win = none.scatter_reduce(0, cell, torch.where(is_winner, idx, -1), "amax")[:hw]
+    won = win >= 0
+    src = win.clamp_min(0)
+    xyz = torch.where(won[:, None], cloud.xyz[src], 0.0)
+    rel = torch.where(won, cloud.rel_time[src], 0.0)
+    rng_img = flat[:hw].reshape(height, width)
+    return (rng_img, xyz.reshape(height, width, 3), rel.reshape(height, width),
+            torch.isfinite(rng_img), torch.where(won, src, 0).reshape(height, width))

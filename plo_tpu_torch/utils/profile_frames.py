@@ -3,13 +3,18 @@ share of it, and the device's busy share and top kernels from a
 torch.profiler trace of the steady frames.
 
     python -m plo_tpu_torch.utils.profile_frames [--config PATH] [--projected]
-        [--out DIR]
+        [--headline] [--out DIR]
 
 Runs the corridor sequence of chip_smoke.py (HDL-64 x 900, capacity 131072)
 through Odometry.process_scan on the CUDA card twice: once untraced (the
 per-frame wall times), then on a fresh Odometry with frames 1-2 as warm-up
 and frames 3-5 traced (the profiler's own overhead inflates those). Without --config it runs the default Config() with
 motion_prior=False; --projected enables plane_ICP.use_projected_distance.
+--headline runs bench.py's config (plo_tpu_torch.bench) at capacity 57600,
+each frame after the first as a one-frame batched step (process_scans)
+with the int16 transfer, and also times the grid-stencil PCA
+alone on the last frame's raster (CUDA events, median of 10) and counts its
+device launches.
 Prints a summary and writes it, with the top device kernels, to
 --out/profile_<name>.json.
 """
@@ -24,9 +29,10 @@ import time
 import numpy as np
 import torch
 
-from plo_tpu_torch import config as cfgmod
+from plo_tpu_torch import bench, config as cfgmod
 from plo_tpu_torch.io import synthetic
 from plo_tpu_torch.models.odometry import Odometry
+from plo_tpu_torch.ops import normals, preprocess
 
 N_FRAMES, N_SCANS, AZIMUTH_STEPS, CAPACITY = 5, 64, 900, 131072   # HDL-64 x 900
 
@@ -62,15 +68,45 @@ def _busy_us(events) -> float:
     return busy
 
 
+def _grid_pca(odo, scan, acts) -> dict:
+    """The grid-stencil PCA alone on one frame's raster: device ms (CUDA
+    events around one call, median of 10) and its device launches."""
+    cfg = odo.cfg.scan_registration
+    fe = odo.frontend
+    pts = np.zeros((fe.capacity, 4), np.float32)
+    pts[:len(scan)] = scan[:fe.capacity]
+    rc = preprocess.preprocess(torch.from_numpy(pts).to(odo.device), min(len(scan), fe.capacity),
+                               odo.cfg.sensor, sort=False)
+    _, xyzg, _, occ, _ = preprocess.rasterize_range_image(rc, fe.height, fe.width)
+    call = lambda: normals.compute_normals_pca_grid(xyzg, occ, cfg.compute_normal_method.pca,
+                                                    cfg.use_all_points)
+    call()
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return dict(grid_pca_ms=float(np.median(times)), grid_pca_launches=launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=None)
     ap.add_argument("--projected", action="store_true")
+    ap.add_argument("--headline", action="store_true")
     ap.add_argument("--out", default="out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames: needs a CUDA card")
-    name = ("default" if args.config is None else
+    name = ("headline" if args.headline else "default" if args.config is None else
             os.path.splitext(os.path.basename(args.config))[0]
             + ("-projected" if args.projected else ""))
     dev = torch.device("cuda")
@@ -78,17 +114,23 @@ def main(argv=None):
     scans, _ = synthetic.synthetic_sequence(N_FRAMES, n_scans=N_SCANS,
                                             azimuth_steps=AZIMUTH_STEPS, speed=0.5,
                                             yaw_rate=0.01, seed=3, world=world)
-    cfg = build_config(args.config, args.projected)
+    if args.headline:
+        cfg, capacity = bench.headline_config(N_SCANS, 360.0 / AZIMUTH_STEPS), bench.CAPACITY
+    else:
+        cfg, capacity = build_config(args.config, args.projected), CAPACITY
 
     def frame(odo, s):
         t = time.perf_counter()
-        f = odo.process_scan(s)
+        if args.headline:
+            odo.process_scans([s], batch=1)
+        else:
+            odo.process_scan(s)
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t), f.iterations
+        return 1e3 * (time.perf_counter() - t), odo.trajectory[-1].iterations
 
-    odo = Odometry(cfg, capacity=CAPACITY, seed=0, device=dev)
+    odo = Odometry(cfg, capacity=capacity, seed=0, device=dev)
     untraced = [frame(odo, s) for s in scans]
-    odo = Odometry(cfg, capacity=CAPACITY, seed=0, device=dev)
+    odo = Odometry(cfg, capacity=capacity, seed=0, device=dev)
     for s in scans[:2]:
         frame(odo, s)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -101,7 +143,7 @@ def main(argv=None):
     for s in scans[2:]:
         t = time.perf_counter()
         odo.frontend.process(s, odo.draws.frontend(odo.frontend.n_draws(False),
-                                                   odo.frontend.capacity),
+                                                   odo.frontend.filtered_capacity),
                              odo.last_filtered, first_frame=False)
         torch.cuda.synchronize()
         fe_ms.append(1e3 * (time.perf_counter() - t))
@@ -121,6 +163,8 @@ def main(argv=None):
         traced_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_busy_share=busy_us / wall_us, kernel_launches=len(dev_events),
         top_kernels=[dict(name=k[:200], launches=n, ms=t / 1e3) for k, (n, t) in top])
+    if odo.frontend.format == "range_image":
+        summary.update(_grid_pca(odo, scans[-1], acts))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"profile_{name}.json"), "w") as fh:
         json.dump(summary, fh, indent=1)

@@ -372,3 +372,105 @@ def test_gpu_default_frames_match_the_cpu(cuda):
             assert a.stats[key] == b.stats[key], key
         np.testing.assert_allclose(b.pose[:3, 3], a.pose[:3, 3], atol=2e-3)
         np.testing.assert_allclose(b.pose[:3, :3], a.pose[:3, :3], atol=1e-4)
+
+
+def _grid_ring_clouds():
+    """The arrival-order preprocess (CPU) of two 32-beam x 450 corridor
+    scans, raw and int16-quantized: the rasterizer's inputs on the headline
+    path at the test size."""
+    from plo_tpu_torch import config as cfgmod, native
+    from plo_tpu_torch.io import synthetic
+    from plo_tpu_torch.ops import preprocess
+
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, _ = synthetic.synthetic_sequence(2, n_scans=32, azimuth_steps=450, speed=0.5,
+                                            yaw_rate=0.01, seed=3, world=world)
+    sensor = cfgmod.SensorConfig(n_scans=32, azimuth_resolution=360.0 / 450)
+    clouds = []
+    for s in scans:
+        for quantized in (False, True):
+            pts = np.zeros((16384, 4), np.float32)
+            pts[:len(s)] = s
+            if quantized:
+                q = np.zeros((16384, 3), np.int16)
+                native.quantize_pack(s, 200.0, q)
+                pts[:, :3] = q.astype(np.float32) * np.float32(0.005)
+            clouds.append(preprocess.preprocess(torch.from_numpy(pts), len(s), sensor, sort=False))
+    return clouds
+
+
+def _to(rc, dev):
+    import dataclasses
+    return dataclasses.replace(rc, **{f.name: getattr(rc, f.name).to(dev)
+                                      for f in dataclasses.fields(rc)})
+
+
+@pytest.mark.gpu
+def test_gpu_rasterizer_matches_the_cpu(cuda):
+    """The range-image rasterizer on the card against the CPU on the same
+    ring clouds, raw and quantized: every output exactly (the winner of a
+    cell is unique, the range is a correctly rounded root)."""
+    from plo_tpu_torch.ops import preprocess
+    for rc in _grid_ring_clouds():
+        ref = preprocess.rasterize_range_image(rc, 32, 450)
+        out = preprocess.rasterize_range_image(_to(rc, cuda), 32, 450)
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_all_points", [True, False])
+def test_gpu_pca_grid_matches_the_cpu(cuda, use_all_points):
+    """The grid-stencil PCA on the card against the CPU on the same grids:
+    keep and plane_fail exactly; the moment sums add in the same order on
+    both, but the closed-form eigh's sqrt, arccos and cos round otherwise on
+    the card, so eigenvalues within 1e-6 + sqrt(eps) lambda1 and normals
+    within 1e-4 + 2 sqrt(eps) lambda1 / (lambda2 - lambda3) rad, as
+    tests/test_torch_grid_frontend.py holds them against JAX."""
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.ops import normals, preprocess
+    root_eps = float(np.sqrt(np.finfo(np.float32).eps))
+    for rc in _grid_ring_clouds():
+        _, xyzg, _, occ, _ = preprocess.rasterize_range_image(rc, 32, 450)
+        ref = normals.compute_normals_pca_grid(xyzg, occ, cfgmod.PCAConfig(), use_all_points)
+        out = [a.cpu() for a in normals.compute_normals_pca_grid(
+            xyzg.to(cuda), occ.to(cuda), cfgmod.PCAConfig(), use_all_points)]
+        assert torch.equal(out[3], ref[3]) and torch.equal(out[4], ref[4])
+        keep, pfail = ref[3].numpy(), ref[4].numpy()
+        ev = ref[1].numpy()[keep]
+        assert (np.abs(out[1].numpy()[keep] - ev) <= 1e-6 + root_eps * np.abs(ev[:, :1])).all()
+        m = keep & ~pfail
+        cos = (out[0].numpy()[m] * ref[0].numpy()[m]).sum(-1)
+        ev = ref[1].numpy()[m]
+        cond = ev[:, 0] / np.maximum(ev[:, 1] - ev[:, 2], 1e-30)
+        assert (cos > 0).all()
+        assert (np.arccos(np.clip(cos, -1.0, 1.0)) <= 1e-4 + 2 * root_eps * cond).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_gpu_headline_batches_bit_identical_to_frames(cuda, async_mode):
+    """bench.py's config at 32 beams x 450 on the card: process_scans at
+    float32 (frame 0, then frames 1-3 as one batch) gives the poses,
+    iterations and stats of a process_scan loop bit for bit, and launches no
+    kernel (the headline path reaches none)."""
+    from plo_tpu_torch import bench
+    from plo_tpu_torch.io import synthetic
+    from plo_tpu_torch.models.odometry import Odometry
+
+    cfg = bench.headline_config(32, 360.0 / 450)
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, _ = synthetic.synthetic_sequence(4, n_scans=32, azimuth_steps=450, speed=0.5,
+                                            yaw_rate=0.01, seed=3, world=world)
+    cuda_nn.reset_launches()
+    loop = Odometry(cfg, capacity=16384, seed=0, device=cuda, transfer="float32")
+    for s in scans:
+        loop.process_scan(s)
+    batched = Odometry(cfg, capacity=16384, seed=0, device=cuda, transfer="float32",
+                       async_mode=async_mode)
+    batched.process_scans(scans, batch=3)
+    np.testing.assert_array_equal(batched.poses(), loop.poses())
+    for a, b in zip(batched.trajectory, loop.trajectory):
+        assert (a.iterations, a.n_correspondences, a.stats) == \
+            (b.iterations, b.n_correspondences, b.stats)
+    assert not any(cuda_nn.LAUNCHES.values())

@@ -68,6 +68,20 @@ class JaxDraws:
         return torch.from_numpy(np.array(jax.random.randint(k, (m,), 0, int(n_valid)))).long()
 
 
+class JaxBatchDraws(JaxDraws):
+    """The draws of frame `frame` inside plo_tpu's batched step
+    (models/odometry.py:548,564): the front-end takes
+    fold_in(PRNGKey(seed), frame), the ICP fold_in of that with 1, folded
+    with the iteration index. Frames that plo_tpu runs one by one after a
+    batch take its host counter keys, which only those calls advance: the
+    k-th such call after frame 0 has JaxDraws' keys of frame k
+    (`JaxDraws(seed, k)`)."""
+
+    def __init__(self, seed, frame):
+        self.fe_key = jax.random.fold_in(jax.random.PRNGKey(seed), frame)
+        self.icp_key = jax.random.fold_in(self.fe_key, 1)
+
+
 def cloud_arrays(cloud):
     return {f.name: np.array(getattr(cloud, f.name)) for f in dataclasses.fields(cloud)}
 
