@@ -6,16 +6,21 @@ both the same inputs. This package imports torch and numpy only, never JAX and
 never `plo_tpu` (whose `__init__` imports JAX), so it runs on a GPU host that
 has no JAX installed.
 
-What the port covers, in `Odometry.process_scan` with target_mode="window":
-  * the pointcloud front-end: preprocess -> PCA normals -> geometric-features
-    or curvature presample -> normal, major-axis or random sampling;
-  * matching: euclidean IMLS, and plane-ICP in euclidean and projected mode;
-  * solving: RANSAC/DRPM, Ceres (Huber Gauss-Newton) and LS (trimmed).
-So the default `Config()` and the shipped configs/aloam_kitti00.json run,
-the latter also with plane_ICP.use_projected_distance enabled. The four TPU
-kernels of plo_tpu (nearest, projected_argmin, cylinder_stats, fps_ranks)
-are CUDA C++ kernels for sm_90a in csrc/, bound with ctypes in
-ops/cuda_nn.py. Options outside this list raise NotImplementedError.
+What the port covers, in `Odometry.process_scan` and `process_scans` with
+target_mode="window":
+  * the front-end: preprocess -> PCA normals (pointcloud, or the grid stencil
+    on the range image) -> geometric-features, curvature or tensor-voting
+    presample -> three-axis, random, normal or major-axis sampling;
+  * matching: IMLS (euclidean, projected-distance, tensor-voting anchors) and
+    plane-ICP in euclidean and projected mode;
+  * solving: RANSAC/DRPM, Ceres (Huber Gauss-Newton), LS (trimmed), ICP
+    (point-to-point Umeyama) and Teaser (k-core + GNC).
+So the default `Config()`, bench.py's config, the shipped configs but the
+FALS one, and the 36 combinations of the method matrix (method_matrix.py)
+run. The four TPU kernels of plo_tpu (nearest, projected_argmin,
+cylinder_stats, fps_ranks) are CUDA C++ kernels for sm_90a in csrc/, bound
+with ctypes in ops/cuda_nn.py. Cross-product, FALS and SRI normals, map
+mode, BA and undistortion raise NotImplementedError.
 
 Entry points take an explicit `device`. `None` means the CUDA card and raises
 where there is none; the CPU runs only when a caller asks for it

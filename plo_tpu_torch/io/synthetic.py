@@ -159,6 +159,7 @@ def synthetic_sequence(
     seed: int = 0,
     world: Optional[SyntheticWorld] = None,
     workers: int = 1,
+    noise_std: float = 0.01,
 ) -> Tuple[List[np.ndarray], np.ndarray]:
     """Generate a sequence of scans plus ground-truth poses [n_frames, 4, 4].
 
@@ -167,7 +168,8 @@ def synthetic_sequence(
     ramp, 90-degree corners, loop-closing rectangles — the KITTI-protocol
     drill builds its turns-and-revisit path this way). `workers` > 1 renders
     the scans in that many processes (each scan has its own seed, so the
-    result is the same).
+    result is the same). `noise_std` is the range noise of every scan
+    (tools/method_matrix.py renders its sequence at 0.02 m).
     """
     # Trajectory first, so a generated world can be carved around it.
     speeds = np.broadcast_to(np.asarray(speed, np.float64), (n_frames,))
@@ -185,7 +187,7 @@ def synthetic_sequence(
     if world is None:
         world = SyntheticWorld.around_path(poses[:, :2, 3], seed=seed)
     jobs = [dict(world=world, pose=poses[i], n_scans=n_scans, azimuth_steps=azimuth_steps,
-                 seed=seed + i) for i in range(n_frames)]
+                 seed=seed + i, noise_std=noise_std) for i in range(n_frames)]
     if workers > 1:
         import multiprocessing
         with multiprocessing.get_context("spawn").Pool(workers) as pool:
@@ -197,3 +199,71 @@ def synthetic_sequence(
 
 def _render(job: dict) -> np.ndarray:
     return render_scan(**job)
+
+
+def _interpolate_pose(T: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """exp(alpha * log(T)) with linear translation, in float32 as
+    plo_tpu.geometry.interpolate_pose computes it. T [4, 4], alpha [N];
+    returns [N, 4, 4]."""
+    T = T.astype(np.float32)
+    R = T[:3, :3]
+    cos_theta = np.clip((np.trace(R) - np.float32(1.0)) / np.float32(2.0), -1.0, 1.0)
+    theta = np.arccos(cos_theta)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]], np.float32)
+    scale = (theta / np.maximum(np.float32(2.0) * np.sin(theta), np.float32(1e-12))
+             if theta > 1e-6 else np.float32(0.5))
+    aw = alpha[:, None] * (w * np.float32(scale))                   # [N, 3]
+    th = np.maximum(np.linalg.norm(aw, axis=-1, keepdims=True), np.float32(1e-12))
+    x, y, z = (aw / th).T
+    zero = np.zeros_like(x)
+    k = np.stack([np.stack([zero, -z, y], -1), np.stack([z, zero, -x], -1),
+                  np.stack([-y, x, zero], -1)], axis=-2)           # [N, 3, 3]
+    s, c = np.sin(th)[..., None], np.cos(th)[..., None]
+    out = np.zeros((len(alpha), 4, 4), np.float32)
+    out[:, :3, :3] = np.eye(3, dtype=np.float32) + s * k + (np.float32(1.0) - c) * (k @ k)
+    out[:, :3, 3] = alpha[:, None] * T[:3, 3]
+    out[:, 3, 3] = 1.0
+    return out
+
+
+def distort_sequence(scans: List[np.ndarray], gt: np.ndarray,
+                     n_scans: int) -> List[np.ndarray]:
+    """Per-point sweep-motion distortion (plo_tpu.io.synthetic.
+    distort_sequence): a point fired at sweep fraction t is observed from
+    the interpolated pose interp(rel, t), so inv(T_t) maps it into the
+    end-of-sweep frame. Frame 0 takes frame 1's constant-velocity rel."""
+    out = []
+    for i, s in enumerate(scans):
+        rel = np.linalg.inv(gt[max(i - 1, 0)]) @ gt[max(i, 1)]
+        t = (np.arange(len(s)) // n_scans) / max(len(s) // n_scans, 1)
+        Tinv = np.linalg.inv(_interpolate_pose(rel, t.astype(np.float32)))
+        xyz = np.einsum("pij,pj->pi", Tinv[:, :3, :3],
+                        s[:, :3].astype(np.float64)) + Tinv[:, :3, 3]
+        s2 = s.copy()
+        s2[:, :3] = xyz.astype(np.float32)
+        out.append(s2)
+    return out
+
+
+def add_outliers(scans: List[np.ndarray], rng: np.random.Generator,
+                 frac: float = 0.01, extent: float = 40.0) -> List[np.ndarray]:
+    """Replace `frac` of each scan's points with uniform dynamic outliers."""
+    out = []
+    for s in scans:
+        s2 = s.copy()
+        n_out = int(len(s2) * frac)
+        idx = rng.integers(0, len(s2), n_out)
+        s2[idx, :3] = rng.uniform(-extent, extent, (n_out, 3)).astype(np.float32)
+        out.append(s2)
+    return out
+
+
+def hardened_sequence(n_frames: int = 6):
+    """The method matrix's sequence (tools/method_matrix.py): the corridor
+    world at 32 beams x 450, 2 cm range noise, sweep distortion and 1 %
+    dynamic outliers. Returns (scans, ground truth relative to frame 0)."""
+    world = SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, gt = synthetic_sequence(n_frames, n_scans=32, azimuth_steps=450, speed=0.4,
+                                   yaw_rate=0.01, seed=3, world=world, noise_std=0.02)
+    scans = add_outliers(distort_sequence(scans, gt, 32), np.random.default_rng(5))
+    return scans, np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)

@@ -9,13 +9,15 @@ filtered clouds; the pose chain integrates in float64 on the host
 (nowPose = prevLaserPose * rPose, :652-655).
 
 Match: euclidean IMLS (re-searched every iteration, hybrid refresh, or
-frozen after the first search), or plane-ICP in euclidean or projected mode.
-Solve: RANSAC/DRPM, Ceres (Huber Gauss-Newton) or LS (trimmed least squares).
+frozen after the first search), projected-distance IMLS and tensor-voting
+IMLS (both re-searched every iteration), or plane-ICP in euclidean or
+projected mode. Solve: RANSAC/DRPM, Ceres (Huber Gauss-Newton), LS (trimmed
+least squares), ICP (point-to-point Umeyama) or Teaser (k-core + GNC).
 
 PyTorch has no lax.while_loop or lax.cond, so the loop runs on the host:
 each ICP iteration syncs once to the host for the convergence test (and,
 with IMLS's hybrid refresh, the re-search decision), RANSAC's staged early
-exit adds a second sync (solvers/ransac.py), and each IMLS search a third,
+exit adds a second sync (solvers/ransac.py), and each kNN search a third,
 for knn's tie check (ops/neighbors.py).
 """
 from __future__ import annotations
@@ -34,10 +36,17 @@ from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import Config
 from plo_tpu_torch.models.pipeline import (GRID16_SCALE, STATS_KEYS, FrontEnd,
                                            FrontEndOutput, grid_to_device)
-from plo_tpu_torch.ops import matching
+from plo_tpu_torch.ops import matching, tensor_voting
 from plo_tpu_torch.solvers.gauss_newton import solve_gauss_newton
+from plo_tpu_torch.solvers.gnc import ALGORITHMS as TEASER_ALGORITHMS, solve_gnc_tls
+from plo_tpu_torch.solvers.icp_umeyama import solve_icp_point_to_point
 from plo_tpu_torch.solvers.ls import solve_ls_trimmed
 from plo_tpu_torch.solvers.ransac import solve_ransac
+
+# Iteration caps of the ICP and Teaser solvers (plo_tpu/models/odometry.py:
+# 113, 118): a fused while_loop there unrolls the solver body.
+ICP_SOLVER_CAP = 30
+TEASER_CAP = 64
 
 
 @dataclasses.dataclass
@@ -71,6 +80,11 @@ class GeneratorDraws:
         n = n_valid.clamp_min(1)
         return torch.minimum((u * n.to(torch.float32)).long(), n - 1)
 
+    def teaser(self, iteration: int, n: int, m: int):
+        """Teaser's scale estimate: m index pairs (ia, ib), each in [0, n)."""
+        return tuple(torch.randint(0, n, (m,), generator=self.generator, device=self.device)
+                     for _ in range(2))
+
 
 def _flat_query_cap(cfg: Config) -> Optional[int]:
     """Bound on the valid sampled points of a non-first frame when smaller
@@ -90,18 +104,13 @@ TRANSFERS = ("int16", "float32", "grid16")
 
 
 def _check_supported(cfg: Config) -> None:
+    """Raise on options the port does not run; warn where a solver's
+    iteration cap cuts the configured count, and reject unknown Teaser
+    algorithms (plo_tpu/models/odometry.py:129-156, with its texts)."""
     lo = cfg.laser_odometry
-    method = lo.matching_method.method
-    imls = lo.matching_method.imls
-    is_imls = method == "IMLS"
+    sv = lo.solve_method
     unsupported = [
         (lo.target_mode != "window", f"target_mode={lo.target_mode!r}"),
-        (method not in ("IMLS", "plane_ICP"), f"matching {method!r}"),
-        (is_imls and imls.use_projected_distance.enabled, "projected-distance IMLS"),
-        (is_imls and not imls.get_normals.enabled and imls.use_tensor_voting.enabled,
-         "tensor-voting IMLS"),
-        (lo.solve_method.method not in ("RANSAC", "Ceres", "LS"),
-         f"solve {lo.solve_method.method!r}"),
         (lo.undistort, "undistort"),
         (lo.ba.enabled, "bundle adjustment"),
         (cfg.saver.enabled, "saver artifacts"),
@@ -109,6 +118,29 @@ def _check_supported(cfg: Config) -> None:
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+    if lo.matching_method.method not in ("IMLS", "plane_ICP"):
+        raise ValueError(f"invalid matching method {lo.matching_method.method!r}")
+    if sv.method not in ("RANSAC", "Ceres", "LS", "ICP", "Teaser"):
+        raise ValueError(f"invalid solve method {sv.method!r}")
+    if sv.method == "ICP" and sv.icp.max_iterations > ICP_SOLVER_CAP:
+        warnings.warn(
+            f"solve_method ICP max_iterations={sv.icp.max_iterations} is "
+            "capped at 30 (the point-to-point Umeyama loop converges in <10; "
+            "the reference's own outer driver caps at iterations=30)",
+            RuntimeWarning, stacklevel=3)
+    if (sv.method == "Teaser" and sv.teaser.rotation_max_iterations > TEASER_CAP
+            and sv.teaser.rotation_cost_threshold <= 0.0):
+        warnings.warn(
+            f"Teaser rotation_max_iterations={sv.teaser.rotation_max_iterations} "
+            "is capped at 64 and rotation_cost_threshold is disabled; set a "
+            "positive rotation_cost_threshold for cost-converged termination",
+            RuntimeWarning, stacklevel=3)
+    if sv.method == "Teaser" and sv.teaser.rotation_estimation_algorithm \
+            not in TEASER_ALGORITHMS:
+        raise ValueError(
+            f"unknown Teaser rotation_estimation_algorithm "
+            f"{sv.teaser.rotation_estimation_algorithm!r} (solver.h:51-62 "
+            "accepts GNC_TLS | FGR | QUATRO)")
 
 
 def _zeros_cloud(capacity: int, device) -> PointCloud:
@@ -226,10 +258,10 @@ class Odometry:
         return _map_fields(lambda *xs: torch.stack(xs), *(pad + clouds))
 
     def _icp(self, flat: PointCloud, target: PointCloud, draws, init_pose):
-        """The ICP loop of plo_tpu.models.odometry._make_icp_step for
-        euclidean IMLS or plane-ICP, solved by RANSAC, Ceres or LS. Returns
-        (rPose [4, 4] f32 on the device, iterations, correspondences, DRPM
-        probabilities [6], ones for solvers without a DRPM stage)."""
+        """The ICP loop of plo_tpu.models.odometry._make_icp_step in window
+        mode. Returns (rPose [4, 4] f32 on the device, iterations,
+        correspondences, DRPM probabilities [6], ones for solvers without a
+        DRPM stage)."""
         lo = self.cfg.laser_odometry
         sv = lo.solve_method
         imls_cfg = lo.matching_method.imls
@@ -243,17 +275,22 @@ class Odometry:
                 imls_cfg.get_normals.search_number_normal)
         else:
             tgt_normal, tgt_normal_ok = target.normal, target.valid
-        # Frozen correspondences (refresh_correspondences=False, IMLS): one
-        # candidate search at the initial pose, then every iteration
+        # Tensor-voting IMLS: VoteForAny from the target onto the moved
+        # source gives per-source anchor normals (imls_icp.cpp:514-551).
+        voting = (is_imls and not imls_cfg.get_normals.enabled
+                  and imls_cfg.use_tensor_voting.enabled)
+        # Projected and tensor-voting IMLS search the target every iteration,
+        # as plo_tpu does (odometry.py:73-76, 236-243). Euclidean IMLS either
+        # freezes its correspondences (refresh_correspondences=False): one
+        # candidate search at the initial pose, then each iteration
         # re-evaluates gates, anchor, bandwidth and heights from the frozen
-        # set at the current pose (exact at the search pose).
-        frozen = is_imls and not lo.refresh_correspondences
-        # Hybrid refresh (IMLS, refresh_correspondences=True): re-search the
-        # target only once the accumulated per-point motion since the last
-        # search reaches the threshold; between searches as frozen. Threshold
-        # 0 re-searches every iteration (strict laser_odometry.cpp:524-647).
-        # Plane-ICP searches every iteration.
-        hybrid = is_imls and lo.refresh_correspondences and lo.refresh_motion_threshold > 0.0
+        # set at the current pose; or refreshes them by motion (hybrid,
+        # refresh_motion_threshold > 0): a re-search once the accumulated
+        # per-point motion since the last one reaches the threshold, frozen
+        # in between. Threshold 0 and plane-ICP search every iteration.
+        euclid = is_imls and not imls_cfg.use_projected_distance.enabled and not voting
+        frozen = euclid and not lo.refresh_correspondences
+        hybrid = euclid and lo.refresh_correspondences and lo.refresh_motion_threshold > 0.0
 
         rpose = (torch.eye(4, dtype=torch.float32, device=self.device)
                  if init_pose is None else init_pose)
@@ -276,20 +313,39 @@ class Odometry:
                     moved = np.float32(0.0)
                 res = matching.imls_project_cached(src, target, imls_cfg, cache,
                                                    tgt_normal, tgt_normal_ok)
+            elif voting:
+                anchor_n, anchor_ok = tensor_voting.vote_for_any(
+                    target.xyz, target.valid, target.normal, src_xyz, src.valid,
+                    imls_cfg.use_tensor_voting)
+                res = matching.imls_project(src, target, imls_cfg, tgt_normal, tgt_normal_ok,
+                                            anchor_n, anchor_ok)
             else:
                 res = matching.imls_project(src, target, imls_cfg, tgt_normal, tgt_normal_ok)
             n_corr = res.valid.sum()
             enough = n_corr >= lo.matching_method.correspond_number
-            if sv.method == "RANSAC":  # the only solver that draws
+            if sv.method == "RANSAC":
                 delta, ok, probs = solve_ransac(
                     src_xyz, res.y, res.normal, res.valid,
                     draws.ransac(i, n_corr, sv.ransac.max_iterations), sv.ransac)
             elif sv.method == "Ceres":
                 delta, ok = solve_gauss_newton(src_xyz, res.y, res.normal, res.valid,
                                                sv.ceres.max_iterations)
-            else:
+            elif sv.method == "LS":
                 delta, ok = solve_ls_trimmed(src_xyz, res.y, res.normal, res.valid,
                                              sv.ls.threshold)
+            elif sv.method == "ICP":
+                delta, ok = solve_icp_point_to_point(src_xyz, res.y, res.valid,
+                                                     min(sv.icp.max_iterations, ICP_SOLVER_CAP))
+            else:
+                t = sv.teaser
+                pairs = draws.teaser(i, src_xyz.shape[0], 1024) if t.estimate_scaling else None
+                delta, ok = solve_gnc_tls(
+                    src_xyz, res.y, res.valid, t.noise_bound, t.rotation_gnc_factor,
+                    min(t.rotation_max_iterations, TEASER_CAP), use_max_clique=t.use_max_clique,
+                    kcore_min_fraction=t.kcore_heuristic_threshold,
+                    estimate_scaling=t.estimate_scaling, pairs=pairs,
+                    algorithm=t.rotation_estimation_algorithm,
+                    cost_threshold=t.rotation_cost_threshold)
             delta = torch.where(enough & ok, delta, eye)
             converged = ((torch.linalg.norm(delta[:3, 3]) < sv.delta_dist_threshold)
                          & (geo.rotation_angle(delta[:3, :3]) < sv.delta_angle_threshold))

@@ -2,9 +2,10 @@
 plo_tpu/models/pipeline.py::FrontEnd, scan_registration.cpp:809-1560).
 
 Stages: preprocess -> PCA normals (pointcloud, or the grid stencil on the
-rasterized range image) -> geometric-features or curvature presample ->
-random sampling, normal sampling (first frame, and the "normal" method) or
-major-axis sampling against the previous filtered cloud. Outputs the model
+rasterized range image) -> geometric-features, curvature or tensor-voting
+presample -> three-axis or random sampling, normal sampling (first frame,
+and the "normal" method) or major-axis sampling against the previous
+filtered cloud. Outputs the model
 cloud ("/laser_cloud_filtered") and the sampled cloud ("/laser_cloud_flat").
 A scan comes in as points (`process`, `run`) or, for the grid16 transfer, as
 the [H, W] uint16 range raster the sensor fires on (`process_grid`,
@@ -23,7 +24,7 @@ from plo_tpu_torch import resolve_device
 from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import Config
 from plo_tpu_torch.ops import features, normals as normals_ops, preprocess as pre_ops
-from plo_tpu_torch.ops import sampling
+from plo_tpu_torch.ops import sampling, tensor_voting
 
 # Per-frame stats every pipeline emits, sorted: their order in the packed
 # per-frame result row of Odometry.
@@ -61,27 +62,23 @@ class FrontEnd:
             raise NotImplementedError(f"compute_normal_method {cn.format}/{cn.method}: the "
                                       "port covers pointcloud/pca and range_image/pca")
         self.presample_method = sr.presample_method.method
-        if self.presample_method not in ("geometric_features", "curvature"):
-            raise NotImplementedError(f"presample_method {self.presample_method!r}: the port "
-                                      "covers geometric_features, curvature")
+        if self.presample_method not in ("geometric_features", "curvature", "tensor_voting"):
+            raise ValueError(f"invalid presample method {self.presample_method!r}")
         sm = sr.sample_method
-        if sm.method not in ("normal", "major_axis", "random"):
-            raise NotImplementedError(
-                f"sample_method {sm.method!r}: the port covers normal, major_axis, random")
-        if sm.method in ("normal", "major_axis") and sm.normal.sampling_strategy != "random":
-            raise NotImplementedError("normal sampling: the port covers the random strategy")
-        if sm.method == "major_axis" and sm.major_axis.sampling_strategy != "FPS":
-            raise NotImplementedError("major_axis sampling: the port covers the FPS strategy")
         self.sample_method = sm.method
         n = sm.normal
         normal_size = n.azimuth_bins * n.elevation_bins * n.max_points_per_bin
-        if sm.method == "random":
+        if sm.method == "three_axis":
+            self.sample_size = 9 * sm.three_axis.points_per_list
+        elif sm.method == "random":
             self.sample_size = sm.random.max_points
         elif sm.method == "major_axis":
             # frame 1 falls back to `normal` binning (scan_registration.cpp:783)
             self.sample_size = max(sm.major_axis.max_total_points, normal_size)
-        else:
+        elif sm.method == "normal":
             self.sample_size = normal_size
+        else:
+            raise ValueError(f"invalid sample method {sm.method!r}")
         self.height = cfg.sensor.n_scans
         self.width = cfg.grid_width
         # Size of the model cloud: the raw capacity for pointcloud layouts,
@@ -92,6 +89,8 @@ class FrontEnd:
 
     def n_draws(self, first_frame: bool) -> int:
         """How many [filtered_capacity] uniform score vectors a frame takes."""
+        if self.sample_method == "three_axis":
+            return 0
         return 2 if self.sample_method == "major_axis" and not first_frame else 1
 
     def process(self, raw_pts: np.ndarray, scores: Sequence[torch.Tensor],
@@ -126,16 +125,20 @@ class FrontEnd:
         curv = features.ring_curvature(rc, sr.presample_method.curvature.window_size) \
             if curvature else None
         if self.format == "pointcloud":
-            nres = normals_ops.compute_normals_pca(rc, sr.compute_normal_method.pca,
-                                                   sr.use_all_points)
-            cloud, plane_fail = nres.cloud, nres.plane_fail
+            # The tensor-voting presample consumes the full eigen-pairs, which
+            # the rolled kd arc perturbs: it takes the exact two-gather form
+            # (plo_tpu/models/pipeline.py:178-183).
+            nres = normals_ops.compute_normals_pca(
+                rc, sr.compute_normal_method.pca, sr.use_all_points,
+                exact_kd=self.presample_method == "tensor_voting")
+            cloud, plane_fail, eigvecs = nres.cloud, nres.plane_fail, nres.eigvecs
             if curvature:  # stage-1 curvature, kept in the model cloud (pipeline.py:169-172)
                 cloud = dataclasses.replace(cloud, curvature=torch.where(cloud.valid, curv, 0.0))
         else:
             _, xyzg, relg, occ, srcg = pre_ops.rasterize_range_image(rc, self.height, self.width)
-            cloud, plane_fail = self._grid_stage2(
+            cloud, plane_fail, eigvecs = self._grid_stage2(
                 xyzg, relg, occ, curv[srcg.reshape(-1)] if curvature else None)
-        return self._stage3(cloud, plane_fail, rc.valid.sum(), scores, last_filtered,
+        return self._stage3(cloud, plane_fail, eigvecs, rc.valid.sum(), scores, last_filtered,
                             first_frame)
 
     def run_grid(self, grid: torch.Tensor, scores: Sequence[torch.Tensor],
@@ -148,8 +151,9 @@ class FrontEnd:
         xyzg = r3d[..., None] * self._dirs
         relg = (torch.arange(self.width, dtype=torch.float32, device=grid.device)[None, :]
                 / self.width).expand(self.height, self.width)
-        cloud, plane_fail = self._grid_stage2(xyzg, relg, occ, None)
-        return self._stage3(cloud, plane_fail, occ.sum(), scores, last_filtered, first_frame)
+        cloud, plane_fail, eigvecs = self._grid_stage2(xyzg, relg, occ, None)
+        return self._stage3(cloud, plane_fail, eigvecs, occ.sum(), scores, last_filtered,
+                            first_frame)
 
     def _grid_dirs(self, device) -> torch.Tensor:
         """Unit ray directions [H, W, 3] of the grid16 raster: elevation from
@@ -165,10 +169,11 @@ class FrontEnd:
 
     def _grid_stage2(self, xyzg, relg, occ, curv_flat):
         """Grid-stencil PCA normals and the model cloud of the grid layout
-        (plo_tpu's grid_stage2, pca branch). Returns (cloud, plane_fail)."""
+        (plo_tpu's grid_stage2, pca branch). Returns (cloud, plane_fail,
+        eigvecs [H*W, 3, 3])."""
         sr = self.cfg.scan_registration
         hw = self.height * self.width
-        nrm, gev, _, keep, pfail = normals_ops.compute_normals_pca_grid(
+        nrm, gev, eigvecs, keep, pfail = normals_ops.compute_normals_pca_grid(
             xyzg, occ, sr.compute_normal_method.pca, sr.use_all_points)
         ok = (keep & occ).reshape(hw)
         ring = torch.arange(self.height, dtype=torch.float32,
@@ -182,15 +187,20 @@ class FrontEnd:
             curvature=torch.where(ok, curv_flat, 0.0),
             eigvals=torch.where(ok[:, None], gev.reshape(hw, 3), 0.0),
             valid=ok)
-        return cloud, (pfail & occ).reshape(hw)
+        return cloud, (pfail & occ).reshape(hw), eigvecs.reshape(hw, 3, 3)
 
-    def _stage3(self, cloud: PointCloud, plane_fail, n_preprocessed, scores,
+    def _stage3(self, cloud: PointCloud, plane_fail, eigvecs, n_preprocessed, scores,
                 last_filtered: Optional[PointCloud], first_frame: bool) -> FrontEndOutput:
         """Presample candidates, then sample."""
         sr = self.cfg.scan_registration
         if self.presample_method == "curvature":
             cand = features.presample_curvature(cloud.curvature, cloud.valid,
                                                 sr.presample_method.curvature.curvature_threshold)
+        elif self.presample_method == "tensor_voting":
+            # The voted cloud replaces the model cloud (pipeline.py:218-223).
+            tv = tensor_voting.saliency_presample(cloud, eigvecs,
+                                                  sr.presample_method.tensor_voting)
+            cloud, cand = tv.cloud, tv.candidates
         else:
             cand = features.presample_geometric(
                 cloud.eigvals, cloud.valid,
@@ -199,20 +209,24 @@ class FrontEnd:
             cand = cand & ~plane_fail
 
         sm = sr.sample_method
-        if self.sample_method == "random":
+        if self.sample_method == "three_axis":
+            idx, ivalid = sampling.three_axis_sampling(
+                cloud.xyz, cloud.normal, cloud.eigvals, cand, sm.three_axis.points_per_list)
+        elif self.sample_method == "random":
             idx, ivalid = sampling.random_sampling(cand, scores[0], sm.random.max_points)
         elif self.sample_method == "normal" or first_frame:
             nm = sm.normal
             idx, ivalid = sampling.normal_sampling(
                 cloud.normal, cand, scores[0], nm.azimuth_bins, nm.elevation_bins,
-                nm.min_points_per_bin, nm.max_points_per_bin, self.sample_size)
+                nm.min_points_per_bin, nm.max_points_per_bin, self.sample_size,
+                strategy=nm.sampling_strategy, xyz=cloud.xyz)
         else:
             ma = sm.major_axis
             idx, ivalid = sampling.major_axis_sampling(
                 cloud.xyz, cloud.normal, cand, last_filtered.xyz, last_filtered.valid,
                 scores[0], scores[1], ma.r, ma.r_proj, ma.max_total_points,
                 ma.azimuth_bins, ma.elevation_bins, ma.min_points_per_bin,
-                ma.max_points_per_bin, self.sample_size)
+                ma.max_points_per_bin, self.sample_size, strategy=ma.sampling_strategy)
 
         flat = cloud.gather(idx, ivalid)
         stats = {

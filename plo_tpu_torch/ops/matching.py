@@ -134,22 +134,41 @@ def _finish(src_xyz, src_valid, n_anchor, height, stages) -> MatchResult:
 
 
 def imls_project(source: PointCloud, target: PointCloud, cfg: IMLSConfig,
-                 target_normal=None, target_normal_ok=None) -> MatchResult:
-    """ProjSourcePtToSurface (imls_icp.cpp:496-745), euclidean mode with a
-    full target search: y = x - I(x) n (plo_tpu.ops.matching._imls_impl). In
-    euclidean mode the anchor is the first kNN result."""
-    if cfg.use_projected_distance.enabled:
-        raise NotImplementedError("projected-distance IMLS is not ported yet")
+                 target_normal=None, target_normal_ok=None,
+                 anchor_normal_src=None, anchor_ok_src=None) -> MatchResult:
+    """ProjSourcePtToSurface (imls_icp.cpp:496-745) with a full target search:
+    y = x - I(x) n (plo_tpu.ops.matching._imls_impl). Euclidean mode: the
+    anchor is the first kNN result. Projected mode
+    (use_projected_distance): the anchor is the projected-distance argmin
+    and the neighborhood the projected top-k, both under |d| < r_proj and
+    proj < r (imls_icp.cpp:563-595, 341-364), with the squared projected
+    distances as the bandwidth's sorted distances (:587). With
+    `anchor_normal_src` (tensor-voting IMLS) the anchor normal is the SOURCE
+    point's voted normal (imls_icp.cpp:634-644, a reference quirk kept)."""
     tn = target.normal if target_normal is None else target_normal
     tok = target.valid if target_normal_ok is None else target.valid & target_normal_ok
     cap = target.capacity
     k = cfg.search_number
-    near_d2, nidx, nfound = neighbors.knn(source.xyz, target.xyz, target.valid,
-                                          k=k, radius=cfg.r)
-    min_dist, aidx, found = near_d2[:, 0], nidx[:, 0], nfound[:, 0]
-    aidx_c = aidx.clamp(0, cap - 1)
-    n_anchor = tn[aidx_c]
-    anchor_normal_ok = tok[aidx_c] & torch.isfinite(n_anchor).all(-1)
+    pd = cfg.use_projected_distance
+    if pd.enabled:
+        pmin, aidx, found = neighbors.projected_argmin(
+            source.xyz, source.normal, target.xyz, target.valid,
+            euclid_gate=pd.r_proj, proj_gate=cfg.r)
+        npd, nidx, nfound = neighbors.projected_knn(
+            source.xyz, source.normal, target.xyz, target.valid, k,
+            euclid_gate=pd.r_proj, proj_gate=cfg.r)
+        min_dist, near_d2 = pmin * pmin, npd * npd
+    else:
+        near_d2, nidx, nfound = neighbors.knn(source.xyz, target.xyz, target.valid,
+                                              k=k, radius=cfg.r)
+        min_dist, aidx, found = near_d2[:, 0], nidx[:, 0], nfound[:, 0]
+    if anchor_normal_src is None:
+        aidx_c = aidx.clamp(0, cap - 1)
+        n_anchor = tn[aidx_c]
+        anchor_normal_ok = tok[aidx_c] & torch.isfinite(n_anchor).all(-1)
+    else:
+        n_anchor = anchor_normal_src
+        anchor_normal_ok = anchor_ok_src & torch.isfinite(n_anchor).all(-1)
     nidx_c = nidx.clamp(0, cap - 1)
     nnrm = tn[nidx_c]
     n_ok = nfound & tok[nidx_c]

@@ -1,7 +1,9 @@
 """Stage 2 — PCA normals (the port of plo_tpu/ops/normals.py): the
-pointcloud path (`_pca_impl` with the rolled-arc kd search and the exact
-+-window, scan_registration.cpp:117-229, loop :1161-1229) and the
-grid-stencil path on the range image (`_pca_grid_impl`).
+pointcloud path (`_pca_impl`, scan_registration.cpp:117-229, loop
+:1161-1229) with its three adjacent-ring forms (the rolled-arc kd search
+with the exact +-window, the default; the exact two-gather kd search, which
+exact_kd pins; the same-position `index` scan) and the grid-stencil path on
+the range image (`_pca_grid_impl`).
 
 Each point's neighborhood is a +-window along its own ring plus +-windows
 around its nearest point on the rings above and below; the 3x3 covariance
@@ -18,6 +20,7 @@ import torch
 from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import PCAConfig
 from plo_tpu_torch.ops.eigh3 import eigh3_descending
+from plo_tpu_torch.ops.neighbors import ring_neighbor_search
 from plo_tpu_torch.ops.preprocess import RingCloud
 
 
@@ -29,6 +32,28 @@ class NormalResult:
     eigvecs: torch.Tensor      # [P, 3, 3] descending-order eigenvector columns
     plane_fail: torch.Tensor   # [P] bool — kept in the model cloud, barred
                                # from sampling (:1481-1489)
+
+
+def _adjacent_ring_index(cloud: RingCloud, offset: int, mode: str, knn_threshold: float,
+                         window: int = 8):
+    """Flat index of findNearestPoint on ring r+offset (:117-136) and whether
+    it holds: mode "kdtree", the 3D nearest point among the 2*window+1
+    around the query's fractional position, within the squared-distance
+    threshold; mode "index", the point at the same position in that ring."""
+    if mode == "kdtree":
+        d2, flat, found = ring_neighbor_search(cloud.xyz, cloud.ring, cloud.pos_in_ring,
+                                               cloud.valid, cloud.ring_start,
+                                               cloud.ring_count, offset, window=window)
+        return flat, found & (d2 < knn_threshold)
+    if mode == "index":
+        h = cloud.ring_start.shape[0]
+        tring = cloud.ring + offset
+        tring_c = tring.clamp(0, h - 1)
+        ok = ((tring >= 0) & (tring < h) & (cloud.pos_in_ring < cloud.ring_count[tring_c])
+              & cloud.valid)
+        flat = cloud.ring_start[tring_c] + cloud.pos_in_ring
+        return flat.clamp(0, cloud.capacity - 1), ok
+    raise ValueError(f"invalid neighbor_scan {mode!r}")
 
 
 def _ring_interior_mask(cloud: RingCloud) -> torch.Tensor:
@@ -122,15 +147,15 @@ def _rolled_adjacent_window(cloud: RingCloud, packed: torch.Tensor, offset: int,
                           window_size, iter_step)
 
 
-def compute_normals_pca(cloud: RingCloud, cfg: PCAConfig,
-                        use_all_points: bool) -> NormalResult:
+def compute_normals_pca(cloud: RingCloud, cfg: PCAConfig, use_all_points: bool,
+                        exact_kd: bool = False) -> NormalResult:
     """PCA normals of every eligible point (plo_tpu.ops.normals.
-    compute_normals_pca with its defaults: kdtree neighbor scan, rolled arc,
-    exact window)."""
-    if cfg.neighbor_scan != "kdtree":
-        raise NotImplementedError(
-            f"neighbor_scan={cfg.neighbor_scan!r}: the port covers the default "
-            "'kdtree' scan only")
+    compute_normals_pca). The kdtree scan takes the rolled arc with the exact
+    window, or with exact_kd the two-gather form: the nearest point of
+    ring_neighbor_search, then the +-window around it. exact_kd is for
+    consumers of the full eigen-pairs (the tensor-voting presample), which
+    the rolled arc's anchor deviation on occupancy-mismatched rings
+    perturbs. The index scan takes the same position on the adjacent rings."""
     ws, step = cfg.window_size, cfg.iter_step
     num = 3 * len(range(-ws, ws + 1, step))  # every slot must be filled (:161,198)
 
@@ -138,8 +163,14 @@ def compute_normals_pca(cloud: RingCloud, cfg: PCAConfig,
     packed = _packed_points(cloud)
     thr = cfg.knn_distance_threshold
     p0, m0 = _window_shift(cloud, packed, eligible, ws, step)
-    p1, m1 = _rolled_adjacent_window(cloud, packed, -1, thr, ws, step, eligible)
-    p2, m2 = _rolled_adjacent_window(cloud, packed, +1, thr, ws, step, eligible)
+    adjacent = []
+    for off in (-1, +1):
+        if cfg.neighbor_scan == "kdtree" and not exact_kd:
+            adjacent.append(_rolled_adjacent_window(cloud, packed, off, thr, ws, step, eligible))
+        else:
+            flat, ok = _adjacent_ring_index(cloud, off, cfg.neighbor_scan, thr)
+            adjacent.append(_window_gather(cloud, packed, flat, ok & eligible, ws, step))
+    (p1, m1), (p2, m2) = adjacent
     pts = torch.cat([p0, p1, p2], dim=1)   # [P, num, 3]
     msk = torch.cat([m0, m1, m2], dim=1)   # [P, num]
 

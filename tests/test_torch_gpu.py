@@ -474,3 +474,160 @@ def test_gpu_headline_batches_bit_identical_to_frames(cuda, async_mode):
         assert (a.iterations, a.n_correspondences, a.stats) == \
             (b.iterations, b.n_correspondences, b.stats)
     assert not any(cuda_nn.LAUNCHES.values())
+
+
+def _corridor_pca(exact_kd):
+    """The CPU preprocess and PCA normals of one 32-beam x 450 corridor scan
+    (use_all_points), the input of the slice-C front-end stages."""
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.io import synthetic
+    from plo_tpu_torch.ops import normals, preprocess
+
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, _ = synthetic.synthetic_sequence(1, n_scans=32, azimuth_steps=450, seed=3, world=world)
+    pts = np.zeros((16384, 4), np.float32)
+    pts[:len(scans[0])] = scans[0]
+    rc = preprocess.preprocess(torch.from_numpy(pts), len(scans[0]),
+                               cfgmod.SensorConfig(n_scans=32, azimuth_resolution=360.0 / 450))
+    return normals.compute_normals_pca(rc, cfgmod.PCAConfig(), True, exact_kd=exact_kd)
+
+
+@pytest.mark.gpu
+def test_gpu_three_axis_matches_the_cpu(cuda):
+    """Three-axis sampling on the card against the CPU on the same cloud,
+    with 300 repeated points (ties on every list): every index and mask
+    exactly (the selection runs on distinct int64 keys)."""
+    from plo_tpu_torch.ops import features, sampling
+    nr = _corridor_pca(False)
+    c = nr.cloud
+    cand = features.presample_geometric(c.eigvals, c.valid, 0.05) & ~nr.plane_fail
+    xyz, nrm, ev = c.xyz.clone(), c.normal.clone(), c.eigvals.clone()
+    idx = torch.nonzero(cand)[:, 0]
+    for a in (xyz, nrm, ev):
+        a[idx[-300:]] = a[idx[:300]]
+    ref = sampling.three_axis_sampling(xyz, nrm, ev, cand, 167)
+    out = sampling.three_axis_sampling(xyz.to(cuda), nrm.to(cuda), ev.to(cuda), cand.to(cuda), 167)
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b)
+    assert bool(ref[1].all())
+
+
+@pytest.mark.gpu
+def test_gpu_tensor_voting_presample_matches_the_cpu(cuda):
+    """The saliency presample on the card against the CPU on the same
+    exact-kd PCA cloud: validity exactly; the closed-form eigh's sqrt, arccos
+    and cos round otherwise on the card, so saliencies within 4 (1e-6 +
+    sqrt(eps) l1) and labels exactly away from near-ties of two saliencies,
+    as tests/test_torch_tensor_voting.py holds them against JAX."""
+    import dataclasses
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.ops import tensor_voting as tv
+    root_eps = float(np.sqrt(np.finfo(np.float32).eps))
+    nr = _corridor_pca(True)
+    cfg = cfgmod.TensorVotingConfig(k=20, sigma=0.2)
+    ref = tv.saliency_presample(nr.cloud, nr.eigvecs, cfg)
+    moved = dataclasses.replace(nr.cloud, **{f.name: getattr(nr.cloud, f.name).to(cuda)
+                                             for f in dataclasses.fields(nr.cloud)})
+    out = tv.saliency_presample(moved, nr.eigvecs.to(cuda), cfg)
+    v = ref.cloud.valid.numpy()
+    assert v.sum() > 3000 and np.array_equal(out.cloud.valid.cpu().numpy(), v)
+    s, c, p = (x.numpy() for x in (ref.surfaceness, ref.curveness, ref.pointness))
+    bound = 4 * (1e-6 + root_eps * np.abs(s + c + p))
+    for a, b in zip((out.surfaceness, out.curveness, out.pointness), (s, c, p)):
+        assert (np.abs(a.cpu().numpy() - b) <= bound)[v].all()
+    srt = np.sort(np.stack([p, c, s]), axis=0)
+    ok = v & (srt[2] - srt[1] > 2 * bound)
+    assert ok.sum() > 0.99 * v.sum()
+    assert np.array_equal(out.labels.cpu().numpy()[ok], ref.labels.numpy()[ok])
+
+
+@pytest.mark.gpu
+def test_gpu_vote_for_any_and_anchor_override_match_the_cpu(cuda):
+    """VoteForAny and tensor-voting IMLS (configs/tensor_voting_vlp32.json's
+    IMLS stage) on the card against the CPU, as
+    tests/test_torch_tensor_voting.py holds them against JAX: the exact-kd
+    PCA cloud votes onto itself moved by 0.3 m and 0.01 rad. Received
+    exactly; voted normals within 1e-4 in cosine on 99 % of points and 0.9
+    on all (the closed-form eigh rounds otherwise on the card); then IMLS
+    with the CPU's voted normals as the anchors on both devices: validity,
+    normals and counters exactly, y within 1e-4 m."""
+    import dataclasses
+    import os
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.ops import matching
+    from plo_tpu_torch.ops import tensor_voting as tv
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    icfg = cfgmod.load(os.path.join(root, "configs", "tensor_voting_vlp32.json")
+                       ).laser_odometry.matching_method.imls
+    tgt = _corridor_pca(True).cloud
+    c, s = math.cos(0.01), math.sin(0.01)
+    rot = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = dataclasses.replace(tgt, xyz=tgt.xyz @ rot.T + torch.tensor([0.3, 0.05, 0.0]),
+                              normal=tgt.normal @ rot.T)
+    on_card = lambda cl: dataclasses.replace(
+        cl, **{f.name: getattr(cl, f.name).to(cuda) for f in dataclasses.fields(cl)})
+    src_c, tgt_c = on_card(src), on_card(tgt)
+    ref_n, ref_ok = tv.vote_for_any(tgt.xyz, tgt.valid, tgt.normal, src.xyz, src.valid,
+                                    icfg.use_tensor_voting)
+    out_n, out_ok = tv.vote_for_any(tgt_c.xyz, tgt_c.valid, tgt_c.normal, src_c.xyz,
+                                    src_c.valid, icfg.use_tensor_voting)
+    ok = ref_ok.numpy()
+    assert ok.sum() > 3000 and np.array_equal(out_ok.cpu().numpy(), ok)
+    cos = (out_n.cpu().numpy() * ref_n.numpy()).sum(1)[ok]
+    assert (cos > 1 - 1e-4).mean() > 0.99 and (cos > 0.9).all()
+    ref = matching.imls_project(src, tgt, icfg, anchor_normal_src=ref_n, anchor_ok_src=ref_ok)
+    out = matching.imls_project(src_c, tgt_c, icfg, anchor_normal_src=ref_n.to(cuda),
+                                anchor_ok_src=ref_ok.to(cuda))
+    assert int(ref.valid.sum()) > 100
+    assert torch.equal(out.valid.cpu(), ref.valid)
+    assert torch.equal(out.normal.cpu(), ref.normal)
+    torch.testing.assert_close(out.y.cpu(), ref.y, rtol=0.0, atol=1e-4)
+    for k, v in ref.counters.items():
+        assert int(out.counters[k]) == int(v), k
+
+
+@pytest.mark.gpu
+def test_gpu_nearest_at_icp_solve_shapes(gen, cuda):
+    """nearest as the point-to-point ICP solve calls it: 2,000 moved source
+    points against their 2,000 matches, radius infinite, half the targets
+    masked; bit-equal to the plain version, one launch."""
+    tgt = gen.uniform(-30, 30, (2000, 3)).astype(np.float32)
+    query = (tgt + gen.normal(0, 0.05, (2000, 3))).astype(np.float32)
+    valid = gen.random(2000) < 0.5
+    q, t, v = (torch.from_numpy(a).to(cuda) for a in (query, tgt, valid))
+    cuda_nn.reset_launches()
+    out = cuda_nn.nearest(q, t, v)
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["nearest"] == 1
+    _assert_same(out, cuda_nn.nearest_plain(q, t, v))
+    assert bool(v[out[1].long()].all()) and bool(out[2].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["GNC_TLS", "FGR", "QUATRO"])
+def test_gpu_teaser_and_icp_match_the_cpu(gen, cuda, algorithm):
+    """Teaser (k-core on, cost threshold on) and the point-to-point ICP solve
+    on the card against the CPU on the same pairs: the 4x4s within 1e-5 (f32
+    reductions in another order); the ICP solve launches nearest once an
+    iteration."""
+    from plo_tpu_torch.solvers import gnc, icp_umeyama
+    src = gen.uniform(-10, 10, (220, 3)).astype(np.float32)
+    c, s = np.cos(0.3), np.sin(0.3)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    ref = (src @ rot.T + np.array([0.8, -0.4, 0.2]) + gen.normal(0, 0.005, (220, 3)))
+    ref = ref.astype(np.float32)
+    ref[:99] += np.array([3.0, 1.5, -2.0], np.float32)
+    valid = np.ones(220, bool)
+    kw = dict(noise_bound=0.05, use_max_clique=True, kcore_min_fraction=0.3,
+              algorithm=algorithm, cost_threshold=0.005)
+    args = [torch.from_numpy(a) for a in (src, ref, valid)]
+    T_cpu, ok_cpu = gnc.solve_gnc_tls(*args, **kw)
+    T_gpu, ok_gpu = gnc.solve_gnc_tls(*(a.to(cuda) for a in args), **kw)
+    assert bool(ok_cpu) and bool(ok_gpu)
+    np.testing.assert_allclose(T_gpu.cpu().numpy(), T_cpu.numpy(), atol=1e-5)
+    cuda_nn.reset_launches()
+    I_gpu, _ = icp_umeyama.solve_icp_point_to_point(*(a.to(cuda) for a in args), 30)
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["nearest"] == 30
+    I_cpu, _ = icp_umeyama.solve_icp_point_to_point(*args, 30)
+    np.testing.assert_allclose(I_gpu.cpu().numpy(), I_cpu.numpy(), atol=1e-5)

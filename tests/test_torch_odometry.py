@@ -60,12 +60,20 @@ class JaxDraws:
         self.icp_key = key(2 * frame + 1)
 
     def frontend(self, n, p):
+        if n == 0:   # three-axis sampling draws nothing
+            return []
         keys = [self.fe_key] if n == 1 else list(jax.random.split(self.fe_key))
         return [torch.from_numpy(np.array(jax.random.uniform(k, (p,)))) for k in keys]
 
     def ransac(self, iteration, n_valid, m):
         k = jax.random.fold_in(self.icp_key, iteration)
         return torch.from_numpy(np.array(jax.random.randint(k, (m,), 0, int(n_valid)))).long()
+
+    def teaser(self, iteration, n, m):
+        """Teaser's scale-estimate pairs (plo_tpu/solvers/gnc.py:78-80)."""
+        ka, kb = jax.random.split(jax.random.fold_in(self.icp_key, iteration))
+        return tuple(torch.from_numpy(np.array(jax.random.randint(k, (m,), 0, n))).long()
+                     for k in (ka, kb))
 
 
 class JaxBatchDraws(JaxDraws):

@@ -152,27 +152,21 @@ def test_aloam_resumed_from_jax_state_matches_jax(world, jax_runs, mode):
     assert_poses_close(frames, jax_traj[RESUME_AFTER + 1:])
 
 
-@pytest.mark.parametrize("what", ["projected-IMLS", "solve-ICP", "three_axis", "tensor_voting"])
+@pytest.mark.parametrize("what", ["cross_product", "FALS", "SRI", "map"])
 def test_options_still_unported_raise(what):
-    """What this slice leaves for later still raises, on an otherwise
-    supported config."""
+    """What the port still leaves for later raises, on an otherwise
+    supported config: the cross-product, FALS and SRI normals and map mode
+    (projected and tensor-voting IMLS, the ICP and Teaser solvers and
+    three-axis sampling run since slice C: tests/test_torch_solvers_c.py,
+    tests/test_torch_tensor_voting.py, tests/test_torch_matrix.py)."""
     cfg = aloam(port_cfg, "B1")
     lo, sr = cfg.laser_odometry, cfg.scan_registration
-    if what == "projected-IMLS":
-        mm = lo.matching_method
-        imls = dataclasses.replace(mm.imls, use_projected_distance=dataclasses.replace(
-            mm.imls.use_projected_distance, enabled=True))
-        lo = dataclasses.replace(lo, matching_method=dataclasses.replace(
-            mm, method="IMLS", imls=imls))
-    elif what == "solve-ICP":
-        lo = dataclasses.replace(lo, solve_method=dataclasses.replace(lo.solve_method,
-                                                                      method="ICP"))
-    elif what == "three_axis":
-        sr = dataclasses.replace(sr, sample_method=dataclasses.replace(sr.sample_method,
-                                                                       method="three_axis"))
+    if what == "map":
+        lo = dataclasses.replace(lo, target_mode="map")
     else:
-        sr = dataclasses.replace(sr, presample_method=dataclasses.replace(
-            sr.presample_method, method="tensor_voting"))
+        fmt = "pointcloud" if what == "cross_product" else "range_image"
+        sr = dataclasses.replace(sr, compute_normal_method=dataclasses.replace(
+            sr.compute_normal_method, format=fmt, method=what))
     cfg = dataclasses.replace(cfg, laser_odometry=lo, scan_registration=sr)
     with pytest.raises(NotImplementedError):
         Odometry(cfg, capacity=CAPACITY, device="cpu")
