@@ -55,7 +55,29 @@ traceback, and a watchdog turns a hang into the same:
      0.05 m, else correspondences > 0 on every ICP frame and the ATE printed;
   8. the method matrix (plo_tpu_torch.method_matrix): all 36 combinations
      at the tool's size (32 x 450, 6 frames, capacity 16384) on the card,
-     each below 0.1 m ATE; the table and the phase's time printed.
+     each below 0.1 m ATE; the table and the phase's time printed;
+  9. slice D's paths on phase 3's frames, launch counts set to 0 before each
+     and read after, every pose finite, frame times, ICP iterations, launches
+     and peak device memory printed:
+       D1 map dense: tools/bench_map_mode.py's config (range_image/pca,
+          random 2,000, frozen IMLS, RANSAC-1000 + DRPM, a 65,536-point voxel
+          map at 0.3 m) at capacity 57600, through process_scan (float32)
+          and through process_scans(batch=4) with grid16: no launch, ATE
+          below 0.1 m, det(R) of the device world pose within 1e-5 of 1;
+       D2 map grid_hash: D1 with map.search="grid_hash": the same checks, and
+          every position within 2e-3 m of D1's (tests/test_map_mode.py:104);
+       D3 map plane-ICP: B1 with target_mode="map" at capacity 131072:
+          nearest it times, ATE below 0.1 m;
+       D4 undistortion: B1 with motion_prior and undistort on swept frames
+          (phase 3's world at 0.8 m and 0.02 rad a frame, each passed
+          through synthetic.distort_sequence; make_swept_sequence says why):
+          nearest it times; and with undistort off: the undistorted ATE must
+          be the lower;
+       D5 FALS: configs/drpm_range_image.json as shipped: nearest it times;
+          capability (plo_tpu does not converge there);
+       D6 SRI: D5 with method SRI; D7 cross-product: B1 with
+          compute_normal_method.method="cross_product": nearest it times;
+     D3-D7 per frame at capacity 131072, gated as phase 7 (JAX_ATE_M).
 With --baseline DIR (an older checkout, e.g. `git archive` of a parent
 commit unpacked into a git-ignored directory), each call that phases 2 and
 2b time (MAIN_CALLS) is also made with DIR's function of the same name and
@@ -102,15 +124,26 @@ ATE_BOUND_M = 0.1
 HEADLINE_BATCH = 4                 # phase 6: frame 0 alone, frames 2-5 as one batch
 IMLS_WLS, TENSOR_VOTING = "configs/imls_wls_kitti00.json", "configs/tensor_voting_vlp32.json"
 VLP32_AZIMUTH_STEPS = 1800         # phase 7 C3: a VLP-32C at 0.2 deg
-# plo_tpu's ATE (m) on phase 7's frames, the same configs and capacity, JAX on
-# the CPU (tests/reference_ate.py). Where it is below JAX_ATE_GATE_M the path
+# plo_tpu's ATE (m) on phase 7's and 9's frames, the same configs and
+# capacities, JAX on the CPU (tests/reference_ate.py). Where it is below JAX_ATE_GATE_M the path
 # must meet ATE_BOUND_M; elsewhere plo_tpu itself does not converge there and
 # the check is capability only.
 JAX_ATE_M = {"C1": 0.002480622126666324, "C2": 1.2676303351183331, "C3": 1.2000892780120929,
              "C4": 0.014870992114515327, "C5": 1.210399997576329, "C6": 0.0022576493822073353,
-             "C7": 0.0014565372107066643}
+             "C7": 0.0014565372107066643,
+             "D1": 0.0007514070380471967, "D2": 0.0007449906840990181,
+             "D3": 0.002205519435076148, "D4": 0.006180176648298155,
+             "D4 off": 0.00793042390687992, "D5": 0.8214545315066566,
+             "D6": 0.1546565440617852, "D7": 0.0025577796593220423}
 JAX_ATE_GATE_M = 0.05
 MATRIX_FRAMES, MATRIX_ATE_M = 6, 0.1   # phase 8: the slow JAX test's frames and bound
+DRPM_RANGE_IMAGE = "configs/drpm_range_image.json"
+MAP_CAPACITY, MAP_BATCH = 57600, 4     # phase 9 D1/D2: bench_map_mode's capacity; batch
+MAP_GRID_HASH_M = 2e-3                 # phase 9 D2: grid_hash positions within this of D1's
+DET_TOLERANCE = 1e-5                   # phase 9 D1/D2: |det(R) - 1| of the world pose
+
+# Each path's ATE (m) as phase_path measured it, by path name.
+ATES = {}
 
 # The call of each function that phases 2 and 2b time, as label ->
 # (module under plo_tpu_torch/ops, function name, args, kwargs): what
@@ -420,6 +453,7 @@ def phase_anchor_kernels(dev, g):
                             library_ms=None))
     print(f"projected_argmin: {gated} of {q_n * n_valid} valid pairs pass the d2 gate", flush=True)
     records[0]["icp_case_ms"] = phase_icp_nearest(dev, g)
+    records[0]["map_case_ms"] = phase_map_nearest(dev, g)
     return records
 
 
@@ -446,6 +480,43 @@ def phase_icp_nearest(dev, g):
     ms = cuda_ms(lambda: cuda_nn.nearest(query, tgt, valid))
     print(f"nearest (ICP solve): Q=T={q_n}, {int(valid.sum())} valid, radius inf: equal to the "
           f"plain version bit for bit; kernel {ms:.4f} ms", flush=True)
+    return ms
+
+
+MAP_SLOTS, MAP_LIVE = 65536, 50000   # phase 9 D3's voxel map: capacity, valid prefix
+
+
+def phase_map_nearest(dev, g):
+    """nearest at the map's shape (phase 9 D3): 2,000 queries against a
+    65,536-slot voxel map at 0.3 m whose 50,000 valid points are a prefix in
+    order of distance from the sensor, as voxel_map_insert leaves them,
+    radius 1.5 m; bit-equal to the plain version. Returns the kernel's
+    device ms."""
+    import torch
+    from plo_tpu_torch.ops import cuda_nn
+    cells = torch.randint(-100, 101, (MAP_SLOTS, 3), generator=g, device=dev)
+    cells[:, 2] = cells[:, 2] % 12 - 6
+    pts = cells.to(torch.float32) * 0.3 + 0.15
+    pts = pts[torch.argsort((pts * pts).sum(1))].contiguous()
+    valid = torch.arange(MAP_SLOTS, device=dev) < MAP_LIVE
+    query = (pts[torch.randint(0, MAP_LIVE, (ICP_QUERIES,), generator=g, device=dev)]
+             + 0.2 * torch.randn((ICP_QUERIES, 3), generator=g, device=dev)).contiguous()
+    out = cuda_nn.nearest(query, pts, valid, PICP_R)
+    ref = cuda_nn.nearest_plain(query, pts, valid, PICP_R)
+    torch.cuda.synchronize()
+    for a, b, what in zip(out, ref, ("distance", "idx", "valid")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"nearest (map shape): {what} differs from the plain version "
+                                 f"in {int((a != b).sum())} of {ICP_QUERIES}")
+    if not bool((out[1][out[2]] < MAP_LIVE).all()):
+        raise AssertionError("nearest (map shape): matched a slot past the valid prefix")
+    ms = cuda_ms(lambda: cuda_nn.nearest(query, pts, valid, PICP_R))
+    plain = cuda_ms(lambda: cuda_nn.nearest_plain(query, pts, valid, PICP_R))
+    ops = ICP_QUERIES * MAP_LIVE * NEAREST_OPS_PER_PAIR
+    nbytes = ICP_QUERIES * 12 + MAP_SLOTS * 13 + ICP_QUERIES * 9
+    print(f"nearest (map): Q={ICP_QUERIES} T={MAP_SLOTS} valid={MAP_LIVE} (prefix), r={PICP_R}: "
+          f"equal to the plain version bit for bit ({int(out[2].sum())} found); kernel "
+          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {_bound(ops, nbytes)}", flush=True)
     return ms
 
 
@@ -600,6 +671,7 @@ def phase_path(dev, name, cfg, scans, gt, expect, jax_ate=None):
         raise AssertionError(f"{name}: non-finite pose")
     ate = evaluate.ate_rmse(est, np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt), align=False)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ATES[name] = ate
     gated = jax_ate is None or jax_ate < JAX_ATE_GATE_M
     print(f"{name}: {wall:.2f} s for {len(scans)} frames, ATE {ate:.4f} m (plo_tpu's on the "
           f"CPU: {jax_ate if jax_ate is not None else 'not measured'}; "
@@ -704,6 +776,66 @@ def slice_c_configs(cfgmod, root):
             "C5": c5, "C6": c6, "C7": c7}
 
 
+def slice_d_configs(cfgmod, root):
+    """Phase 9's configs D1-D7 (D4 with undistort on, "D4 off" without)
+    built on a config module with the port's config API (plo_tpu_torch.
+    config here; tests/reference_ate.py passes plo_tpu.config)."""
+    import dataclasses as dc
+    hdl = cfgmod.SensorConfig(n_scans=N_SCANS, azimuth_resolution=360.0 / AZIMUTH_STEPS)
+    load = lambda path: cfgmod.load(os.path.join(root, path), sensor=hdl)
+
+    def with_lo(cfg, **kw):
+        return dc.replace(cfg, laser_odometry=dc.replace(cfg.laser_odometry, **kw))
+
+    def with_normals(cfg, method):
+        sr = cfg.scan_registration
+        return dc.replace(cfg, scan_registration=dc.replace(sr, compute_normal_method=dc.replace(
+            sr.compute_normal_method, method=method)))
+
+    def map_mode(search):   # tools/bench_map_mode.py's config
+        return cfgmod.Config(
+            scan_registration=cfgmod.ScanRegistrationConfig(
+                compute_normal_method=cfgmod.ComputeNormalConfig(format="range_image",
+                                                                 method="pca"),
+                presample_method=cfgmod.PresampleConfig(method="geometric_features"),
+                sample_method=cfgmod.SampleConfig(
+                    method="random", random=cfgmod.RandomSampleConfig(max_points=2000))),
+            laser_odometry=cfgmod.LaserOdometryConfig(
+                target_mode="map",
+                map=cfgmod.MapConfig(voxel_size=0.3, capacity=65536, search=search),
+                refresh_correspondences=False,
+                matching_method=cfgmod.MatchingConfig(method="IMLS"),
+                solve_method=cfgmod.SolveConfig(
+                    method="RANSAC", iterations=30,
+                    ransac=cfgmod.RANSACConfig(max_iterations=1000, distance_threshold=0.2,
+                                               final_solve_method="DRPM"))),
+            sensor=hdl)
+
+    b1 = load(ALOAM)
+    fals = load(DRPM_RANGE_IMAGE)
+    return {"D1": map_mode("dense"), "D2": map_mode("grid_hash"),
+            "D3": with_lo(b1, target_mode="map"),
+            "D4": with_lo(b1, motion_prior=True, undistort=True),
+            "D4 off": with_lo(b1, motion_prior=True, undistort=False),
+            "D5": fals, "D6": with_normals(fals, "SRI"),
+            "D7": with_normals(b1, "cross_product")}
+
+
+def make_swept_sequence():
+    """Phase 9 D4's frames: phase 3's world and sensor at the motion of
+    tests/test_odometry.py's undistortion test (0.8 m and 0.02 rad a frame),
+    each point moved as the sensor's sweep saw it (synthetic.distort_sequence).
+    At phase 3's 0.5 m and 0.01 rad the sweep's distortion is below the
+    trajectory's other errors, and compensating it does not lower plo_tpu's
+    own ATE there (PERF.md, Findings)."""
+    from plo_tpu_torch.io import synthetic
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, gt = synthetic.synthetic_sequence(N_FRAMES, n_scans=N_SCANS,
+                                             azimuth_steps=AZIMUTH_STEPS, speed=0.8,
+                                             yaw_rate=0.02, seed=3, world=world)
+    return synthetic.distort_sequence(scans, gt, N_SCANS), gt
+
+
 def make_vlp32_sequence():
     """Phase 7 C3's frames: the corridor sequence on a VLP-32C at 0.2 deg."""
     return make_sequence(32, VLP32_AZIMUTH_STEPS)
@@ -726,6 +858,100 @@ def phase_slice_c(dev, scans, gt):
         seq_scans, seq_gt = vlp32 if name == "C3" else (scans, gt)
         out[name] = phase_path(dev, name, cfg, seq_scans, seq_gt, expect[name],
                                jax_ate=JAX_ATE_M[name])
+    return out
+
+
+def _map_runs(dev, name, cfg, scans, gt):
+    """Phase 9's D1 or D2: the frames through process_scan (float32), then
+    through process_scans(batch=MAP_BATCH) with grid16 (frame 0 alone, the
+    rest as one batch); each run's poses finite, ATE below ATE_BOUND_M and
+    det(R) of the device world pose within DET_TOLERANCE of 1. Returns (the
+    two runs' poses, launch counts)."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.utils import evaluate
+
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_nn.reset_launches()
+    poses = {}
+    for run in ("process_scan", "process_scans"):
+        if run == "process_scan":
+            odo = Odometry(cfg, capacity=MAP_CAPACITY, seed=0, device=dev, transfer="float32")
+            walls = []
+            for s in scans:
+                t = time.perf_counter()
+                odo.process_scan(s)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t))
+            timing = "frames " + ", ".join(f"{w:.1f}" for w in walls) + " ms"
+        else:
+            odo = Odometry(cfg, capacity=MAP_CAPACITY, seed=0, device=dev, async_mode=True,
+                           transfer="grid16")
+            walls = []
+            for part in (scans[:1], scans[1:]):
+                t = time.perf_counter()
+                odo.process_scans(part, batch=MAP_BATCH)
+                odo.sync()
+                walls.append(1e3 * (time.perf_counter() - t))
+            timing = (f"frame 0 {walls[0]:.1f} ms, frames 2-5 (one batch) {walls[1]:.1f} ms "
+                      f"= {walls[1] / (len(scans) - 1):.1f} ms a frame")
+        frames = odo.finalize()
+        est = odo.poses()
+        if not np.isfinite(est).all():
+            raise AssertionError(f"{name} {run}: non-finite pose")
+        ate = evaluate.ate_rmse(est, gt_rel, align=False)
+        det = float(torch.linalg.det(odo._world_dev[:3, :3].double()))
+        print(f"  {name} {run}: {timing}; ATE {ate:.4f} m, ICP iterations "
+              f"{[f.iterations for f in frames]}, correspondences "
+              f"{[f.n_correspondences for f in frames]}, map {int(odo._device_map.valid.sum())} "
+              f"points, det(R) - 1 = {det - 1:.2e}", flush=True)
+        if not ate < ATE_BOUND_M:
+            raise AssertionError(f"{name} {run}: ATE {ate} m >= {ATE_BOUND_M} m")
+        if not abs(det - 1.0) < DET_TOLERANCE:
+            raise AssertionError(f"{name} {run}: det(R) of the world pose {det}")
+        poses[run] = est
+        ATES[f"{name} {run}"] = ate
+    launches = dict(cuda_nn.LAUNCHES)
+    print(f"{name}: launches {launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"{name}: the path launched a kernel: {launches}")
+    return poses, launches
+
+
+def phase_slice_d(dev, scans, gt):
+    """Phase 9 (see the module docstring). Returns {path: launch counts}."""
+    import numpy as np
+    from plo_tpu_torch import bench, config as cfgmod
+    cfgs = slice_d_configs(cfgmod, os.path.dirname(os.path.abspath(__file__)))
+    if cfgs["D1"] != bench.map_config("dense", N_SCANS, 360.0 / AZIMUTH_STEPS):
+        raise AssertionError("D1's config is not bench.map_config('dense')")
+    t0 = time.perf_counter()
+    out = {}
+    poses = {}
+    for name in ("D1", "D2"):
+        poses[name], out[name] = _map_runs(dev, name, cfgs[name], scans, gt)
+    for run in poses["D1"]:
+        dt = np.linalg.norm(poses["D2"][run][:, :3, 3] - poses["D1"][run][:, :3, 3], axis=1)
+        print(f"D2 {run}: positions within {dt.max():.2e} m of D1's", flush=True)
+        if not dt.max() < MAP_GRID_HASH_M:
+            raise AssertionError(f"D2 {run}: grid_hash positions {dt.max()} m from dense")
+    zero = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
+    per_iteration = lambda it: {**zero, "nearest": it}
+    swept = make_swept_sequence()
+    for name in ("D3", "D4", "D4 off", "D5", "D6", "D7"):
+        seq_scans, seq_gt = swept if name.startswith("D4") else (scans, gt)
+        out[name] = phase_path(dev, name, cfgs[name], seq_scans, seq_gt, per_iteration,
+                               jax_ate=JAX_ATE_M.get(name))
+    print(f"D4: ATE {ATES['D4']:.4f} m with undistortion, {ATES['D4 off']:.4f} m without",
+          flush=True)
+    if not ATES["D4"] < ATES["D4 off"]:
+        raise AssertionError("D4: undistortion did not lower the ATE")
+    print(f"slice D: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -770,6 +996,7 @@ def main(argv=None):
         **phase_slice_c(dev, scans, gt),
     }
     phase_matrix(dev)
+    by_path.update(phase_slice_d(dev, scans, gt))
     main_path = {"nearest": "B1", "projected_argmin": "B2",
                  "cylinder_stats": "default", "fps_ranks": "default"}
     for rec in records:

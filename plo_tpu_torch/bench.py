@@ -2,6 +2,7 @@
 config and scans, through `Odometry.process_scans` on one CUDA card.
 
     python -m plo_tpu_torch.bench
+    python -m plo_tpu_torch.bench --map {dense,grid_hash}
 
 Prints the card's name and power limit (nvidia-smi's line), then bench.py's
 three JSON lines with its metric names and units, the headline last (each
@@ -16,10 +17,17 @@ The protocol is bench.py's: warm up on frame 0 and one batch, then the median
 of three windows of two batches each, each window closed by a sync (no
 fetch). The 113 synthetic HDL-64 x 900 scans are cached in
 .bench_scans_v1.npz at the repo root, the file and format bench.py uses.
+
+With --map, the map-mode benchmark of tools/bench_map_mode.py instead: the
+headline config with target_mode="map" (a 65,536-point voxel map at 0.3 m,
+searched "dense" or through the "grid_hash"), the grid16 transfer, the same
+scans and protocol; one line, `map_mode_scans_per_sec_<search>`.
 Raises without a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,6 +69,17 @@ def headline_config(n_scans: int = 64, azimuth_resolution: float = 0.4) -> cfgmo
         ),
         sensor=cfgmod.SensorConfig(n_scans=n_scans, azimuth_resolution=azimuth_resolution),
     )
+
+
+def map_config(search: str, n_scans: int = 64,
+               azimuth_resolution: float = 0.4) -> cfgmod.Config:
+    """tools/bench_map_mode.py's config: the headline config against a
+    persistent world-frame voxel map of 65,536 points at 0.3 m, searched
+    `search` ("dense" or "grid_hash")."""
+    cfg = headline_config(n_scans, azimuth_resolution)
+    return dataclasses.replace(cfg, laser_odometry=dataclasses.replace(
+        cfg.laser_odometry, target_mode="map",
+        map=cfgmod.MapConfig(voxel_size=0.3, capacity=65536, search=search)))
 
 
 def cached_sequence(n_frames: int = N_FRAMES, path: str = SCAN_CACHE, workers: int = 1):
@@ -140,7 +159,11 @@ def _line(metric: str, value: float) -> str:
                        "vs_baseline": round(value / 10.0, 3)})
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Throughput of plo_tpu_torch on one CUDA card.")
+    ap.add_argument("--map", choices=("dense", "grid_hash"), default=None,
+                    help="the map-mode benchmark (tools/bench_map_mode.py) with this search")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("plo_tpu_torch.bench: needs a CUDA card")
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -151,6 +174,10 @@ def main() -> None:
     t0 = time.perf_counter()
     scans, _ = cached_sequence(workers=min(8, os.cpu_count() or 1))
     print(f"scans: {len(scans)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.map is not None:
+        rate = measure(map_config(args.map), scans, "grid16", device)
+        print(_line(f"map_mode_scans_per_sec_{args.map}", rate), flush=True)
+        return
     cfg = headline_config()
     print(_line("scans_per_sec_device_ceiling", measure_device_ceiling(cfg, scans, device)),
           flush=True)

@@ -250,10 +250,8 @@ class MapConfig:
     n_buckets: int = 1 << 19
     # Correspondence search against the map: "dense" = the exact chunked
     # engine (ops/neighbors.py); "grid_hash" = the sub-linear 27-cell bucket
-    # gather (ops/grid_hash.py; freeze-mode euclidean IMLS only). On TPU the
-    # fused dense scan WINS below ~512k map points (0.46 ms at 57.6k targets
-    # vs gather-bound bucket lookups — measured 76 vs 15.5 scans/s e2e at a
-    # 65k map); grid_hash is the asymptotic tool for city-scale maps.
+    # gather (ops/grid_hash.py; freeze-mode euclidean IMLS only), the tool
+    # for maps far larger than a frame.
     search: str = "dense"
     grid_cell: float = 1.5     # grid-hash cell edge; exact within min(r, cell)
     grid_m: int = 128          # grid-hash per-cell candidate cap

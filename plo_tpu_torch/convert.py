@@ -42,7 +42,7 @@ def config_from_dict(tree: Mapping[str, Any]) -> Config:
 def cloud_from_numpy(arrays: Mapping[str, np.ndarray], device) -> PointCloud:
     """A PointCloud from {field: numpy array} (xyz, normal, intensity,
     curvature, eigvals, valid)."""
-    return PointCloud(**{f.name: torch.as_tensor(np.asarray(arrays[f.name]), device=device)
+    return PointCloud(**{f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
                          for f in dataclasses.fields(PointCloud)})
 
 
@@ -50,18 +50,25 @@ def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.n
                               frame_count: int, last_rel: Optional[np.ndarray],
                               trajectory: Iterable[Mapping[str, Any]],
                               cloud_queue: Iterable[Mapping[str, np.ndarray]] = (),
-                              window: Optional[Mapping[str, np.ndarray]] = None) -> Odometry:
+                              window: Optional[Mapping[str, np.ndarray]] = None,
+                              device_map: Optional[Mapping[str, np.ndarray]] = None,
+                              world: Optional[np.ndarray] = None) -> Odometry:
     """Load a JAX Odometry's carried state into a port Odometry so that the
     next `process_scan` or `process_scans` resumes where JAX stopped: the
     last filtered cloud (major-axis sampling's reference), the target window
     (`cloud_queue`, or after a batched JAX run, whose queue is empty, the
     stacked [K, P] `window` its `_window_state()` returns), the frame count,
-    the last relative pose (the motion prior's init) and the float64
-    trajectory (`dataclasses.asdict` of its OdometryFrames)."""
+    the last relative pose (the motion prior's init and undistortion's
+    sweep motion), the float64 trajectory (`dataclasses.asdict` of its
+    OdometryFrames) and, in map mode, the voxel map (its `_device_map` as a
+    cloud) and the f32 world pose (its `_world_dev`)."""
     dev = odo.device
     odo.last_filtered = cloud_from_numpy(last_filtered, dev)
     odo.cloud_queue = deque(cloud_from_numpy(c, dev) for c in cloud_queue)
     odo._device_window = None if window is None else cloud_from_numpy(window, dev)
+    odo._device_map = None if device_map is None else cloud_from_numpy(device_map, dev)
+    odo._world_dev = (None if world is None else
+                      torch.as_tensor(np.asarray(world, np.float32), device=dev))
     odo.frame_count = int(frame_count)
     odo._last_rel = (None if last_rel is None else
                      torch.as_tensor(np.asarray(last_rel, np.float32), device=dev))

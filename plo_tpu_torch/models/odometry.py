@@ -1,24 +1,31 @@
 """Back-end — frame-to-model ICP odometry (the port of
-plo_tpu/models/odometry.py in window mode, frame by frame and batched;
+plo_tpu/models/odometry.py, frame by frame and batched;
 laser_odometry.cpp:416-683).
 
 Per frame: the front-end, then the ICP loop (transform -> match -> solve
 -> compose, at most `iterations` times with the dual distance/angle
-convergence test, :524-647) against the window of the last `max_queue_size`
-filtered clouds; the pose chain integrates in float64 on the host
-(nowPose = prevLaserPose * rPose, :652-655).
+convergence test, :524-647) against the target model; the pose chain
+integrates in float64 on the host (nowPose = prevLaserPose * rPose,
+:652-655). The target is the window of the last `max_queue_size` filtered
+clouds (target_mode="window", the reference's accumulateTargetCloud), or a
+persistent world-frame voxel map (target_mode="map"): the ICP then solves
+for the world pose from the previous one (or the motion prior), and each
+frame's filtered cloud enters the map at its solved pose. With `undistort`,
+the sampled source is compensated for the sweep's motion with the last
+relative pose before the ICP, and the model cloud with the pose just solved.
 
 Match: euclidean IMLS (re-searched every iteration, hybrid refresh, or
-frozen after the first search), projected-distance IMLS and tensor-voting
-IMLS (both re-searched every iteration), or plane-ICP in euclidean or
-projected mode. Solve: RANSAC/DRPM, Ceres (Huber Gauss-Newton), LS (trimmed
-least squares), ICP (point-to-point Umeyama) or Teaser (k-core + GNC).
+frozen after the first search, which on a map can go through the grid hash),
+projected-distance IMLS and tensor-voting IMLS (both re-searched every
+iteration), or plane-ICP in euclidean or projected mode. Solve: RANSAC/DRPM,
+Ceres (Huber Gauss-Newton), LS (trimmed least squares), ICP (point-to-point
+Umeyama) or Teaser (k-core + GNC).
 
 PyTorch has no lax.while_loop or lax.cond, so the loop runs on the host:
 each ICP iteration syncs once to the host for the convergence test (and,
 with IMLS's hybrid refresh, the re-search decision), RANSAC's staged early
 exit adds a second sync (solvers/ransac.py), and each kNN search a third,
-for knn's tie check (ops/neighbors.py).
+for knn's tie check (ops/neighbors.py). The map chain adds none.
 """
 from __future__ import annotations
 
@@ -36,7 +43,8 @@ from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import Config
 from plo_tpu_torch.models.pipeline import (GRID16_SCALE, STATS_KEYS, FrontEnd,
                                            FrontEndOutput, grid_to_device)
-from plo_tpu_torch.ops import matching, tensor_voting
+from plo_tpu_torch.ops import matching, tensor_voting, voxel
+from plo_tpu_torch.ops.undistort import undistort_cloud
 from plo_tpu_torch.solvers.gauss_newton import solve_gauss_newton
 from plo_tpu_torch.solvers.gnc import ALGORITHMS as TEASER_ALGORITHMS, solve_gnc_tls
 from plo_tpu_torch.solvers.icp_umeyama import solve_icp_point_to_point
@@ -109,9 +117,21 @@ def _check_supported(cfg: Config) -> None:
     algorithms (plo_tpu/models/odometry.py:129-156, with its texts)."""
     lo = cfg.laser_odometry
     sv = lo.solve_method
+    if lo.target_mode not in ("window", "map"):
+        raise ValueError(f"invalid target_mode {lo.target_mode!r}")
+    if lo.target_mode == "map":
+        if lo.map.search not in ("dense", "grid_hash"):
+            raise ValueError(f"invalid map.search {lo.map.search!r}")
+        if lo.ba.enabled:
+            raise ValueError("ba.enabled requires target_mode='window' "
+                             "(the map already anchors the pose chain)")
+        if (lo.matching_method.method == "IMLS"
+                and lo.matching_method.imls.use_projected_distance.enabled
+                and lo.map.search == "grid_hash"):
+            raise ValueError("map.search='grid_hash' requires euclidean IMLS "
+                             "(freeze-mode search); projected-distance mode "
+                             "uses the dense engine")
     unsupported = [
-        (lo.target_mode != "window", f"target_mode={lo.target_mode!r}"),
-        (lo.undistort, "undistort"),
         (lo.ba.enabled, "bundle adjustment"),
         (cfg.saver.enabled, "saver artifacts"),
     ]
@@ -155,6 +175,16 @@ def _map_fields(fn, *clouds: PointCloud) -> PointCloud:
                          for f in dataclasses.fields(PointCloud)})
 
 
+def _fix_pose(T: torch.Tensor) -> torch.Tensor:
+    """T with its rotation projected onto SO(3). The map chain composes
+    world -> rel (through the transpose inverse) -> next init every frame;
+    the transpose inverse of a slightly non-orthonormal R doubles its defect,
+    so f32 solver roundoff would grow exponentially (plo_tpu measured
+    det(R) = 0.989 by frame 15 without it). geo.project_so3 needs no SVD, so
+    the chain makes no host sync."""
+    return geo.make_se3(geo.project_so3(T[:3, :3]), T[:3, 3])
+
+
 class Odometry:
     """Front-end + ICP back-end + float64 host pose chain. Runs on the CUDA
     card unless `device` names another; `device=None` with no card raises.
@@ -162,7 +192,8 @@ class Odometry:
     `process_scan` takes one frame; `process_scans` takes a sequence and runs
     full batches of `batch` frames as one step each: one host-to-device copy
     of the batch's packed scans, the frames against the device-resident
-    [K, P] model window, and one packed result row per frame kept on the
+    model (the [K, P] window, or the voxel map with the world pose and the
+    last relative pose), and one packed result row per frame kept on the
     device. `transfer` is how a batch's scans cross to the device: "int16"
     (xyz in 5 mm fixed point), "float32", or "grid16" (the [H, W] uint16
     range raster; range_image configs only). As in the JAX package, frame 0
@@ -209,6 +240,12 @@ class Odometry:
         self.last_filtered: Optional[PointCloud] = None
         self.trajectory: List[OdometryFrame] = []
         self._last_rel: Optional[torch.Tensor] = None   # device rPose of the last frame
+        # Map target mode: the world-frame voxel map and the f32 world pose
+        # on the device (the pose only seeds the next frame's ICP; the
+        # trajectory is the float64 chain of the fetched world poses).
+        self._map_mode = cfg.laser_odometry.target_mode == "map"
+        self._device_map: Optional[PointCloud] = None
+        self._world_dev: Optional[torch.Tensor] = None
         self._pending: List[tuple] = []   # (first frame index, rows [n, 24 + stats])
         # The front-end keeps the first `capacity` points of a larger scan;
         # the dropped points are counted here and warned about once.
@@ -258,10 +295,10 @@ class Odometry:
         return _map_fields(lambda *xs: torch.stack(xs), *(pad + clouds))
 
     def _icp(self, flat: PointCloud, target: PointCloud, draws, init_pose):
-        """The ICP loop of plo_tpu.models.odometry._make_icp_step in window
-        mode. Returns (rPose [4, 4] f32 on the device, iterations,
-        correspondences, DRPM probabilities [6], ones for solvers without a
-        DRPM stage)."""
+        """The ICP loop of plo_tpu.models.odometry._make_icp_step. Returns
+        (rPose [4, 4] f32 on the device, iterations, correspondences, DRPM
+        probabilities [6], ones for solvers without a DRPM stage); in map
+        mode the rPose is the world pose."""
         lo = self.cfg.laser_odometry
         sv = lo.solve_method
         imls_cfg = lo.matching_method.imls
@@ -269,12 +306,22 @@ class Odometry:
         cap = _flat_query_cap(self.cfg)
         if cap is not None and flat.capacity > cap:
             flat = flat.slice(cap)
-        if is_imls and not imls_cfg.get_normals.enabled:
+        if self._map_mode:
+            # The map keeps the normals of insertion time (a surfel map);
+            # zero-normal points (plane-fail survivors of use_all_points) are
+            # "no-normal" rejects (imls_icp.cpp:655-668).
+            tgt_normal = target.normal
+            tgt_normal_ok = target.valid & ((target.normal * target.normal).sum(-1) > 1e-12)
+        elif is_imls and not imls_cfg.get_normals.enabled:
             tgt_normal, tgt_normal_ok = matching.precompute_target_normals(
                 target.xyz, target.valid, imls_cfg.get_normals.r_normal,
                 imls_cfg.get_normals.search_number_normal)
         else:
             tgt_normal, tgt_normal_ok = target.normal, target.valid
+        # The map's normals live in the world frame, so the source normals
+        # are rotated for the angle gate whatever transform_normal says.
+        transform_normal = lo.transform_normal or self._map_mode
+        grid = self._map_mode and lo.map.search == "grid_hash"
         # Tensor-voting IMLS: VoteForAny from the target onto the moved
         # source gives per-source anchor normals (imls_icp.cpp:514-551).
         voting = (is_imls and not imls_cfg.get_normals.enabled
@@ -288,14 +335,23 @@ class Odometry:
         # refresh_motion_threshold > 0): a re-search once the accumulated
         # per-point motion since the last one reaches the threshold, frozen
         # in between. Threshold 0 and plane-ICP search every iteration.
+        # On a map searched through the grid hash, only the frozen search
+        # takes the grid; hybrid refresh is off there (odometry.py:243).
         euclid = is_imls and not imls_cfg.use_projected_distance.enabled and not voting
         frozen = euclid and not lo.refresh_correspondences
-        hybrid = euclid and lo.refresh_correspondences and lo.refresh_motion_threshold > 0.0
+        hybrid = (euclid and lo.refresh_correspondences and lo.refresh_motion_threshold > 0.0
+                  and not grid)
 
         rpose = (torch.eye(4, dtype=torch.float32, device=self.device)
                  if init_pose is None else init_pose)
         if frozen:
-            cache = matching.imls_search(geo.transform_points(rpose, flat.xyz), target, imls_cfg)
+            src0 = geo.transform_points(rpose, flat.xyz)
+            if grid:
+                mp = lo.map
+                cache = matching.imls_search_grid(src0, target, imls_cfg, mp.grid_cell,
+                                                  mp.grid_m, mp.grid_buckets)
+            else:
+                cache = matching.imls_search(src0, target, imls_cfg)
         moved = np.float32(np.inf)  # inf -> search at iteration 0
         i = 0
         n_corr = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -303,7 +359,7 @@ class Odometry:
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         while i < sv.iterations:
             src_xyz = geo.transform_points(rpose, flat.xyz)
-            src_normal = geo.rotate_vectors(rpose, flat.normal) if lo.transform_normal else flat.normal
+            src_normal = geo.rotate_vectors(rpose, flat.normal) if transform_normal else flat.normal
             src = dataclasses.replace(flat, xyz=src_xyz, normal=src_normal)
             if not is_imls:
                 res = matching.plane_icp_project(src, target, lo.matching_method.plane_icp)
@@ -367,20 +423,56 @@ class Odometry:
         return rpose, i, n_corr, probs
 
     def _advance(self, fe: FrontEndOutput, target: Optional[PointCloud], draws) -> torch.Tensor:
-        """The back-end of one frame: ICP against `target` (None on frame 0)
-        from the motion prior. Returns the frame's packed result row
-        [pose 16, iterations, correspondences, DRPM probabilities 6, stats],
-        on the device."""
+        """The back-end of one frame: ICP against `target` (None on frame 0),
+        then the model update. Window mode: from the motion prior (the last
+        rPose) or the identity, the window takes the filtered cloud. Map
+        mode: from the world pose, or with the motion prior the world pose
+        times the last relative pose; the solved world pose is projected onto
+        SO(3), the relative pose follows from the previous world pose, and
+        the filtered cloud enters the map at the new world pose. Returns the
+        frame's packed result row [pose 16, iterations, correspondences, DRPM
+        probabilities 6, stats] on the device; its pose is the rPose (window)
+        or the world pose (map)."""
         dev = self.device
+        lo = self.cfg.laser_odometry
         if target is None:
             rpose = torch.eye(4, dtype=torch.float32, device=dev)
             iters, n_corr = 0, torch.zeros((), dtype=torch.int64, device=dev)
             probs = torch.ones(6, dtype=torch.float32, device=dev)
+            if self._map_mode:
+                self._world_dev = rpose
         else:
-            init = (self._last_rel if self.cfg.laser_odometry.motion_prior
-                    and self._last_rel is not None else None)
-            rpose, iters, n_corr, probs = self._icp(fe.flat, target, draws, init)
-            self._last_rel = rpose
+            flat = fe.flat
+            if lo.undistort and self._last_rel is not None:
+                flat = undistort_cloud(flat, self._last_rel)
+            prior = lo.motion_prior and self._last_rel is not None
+            if self._map_mode:
+                init = self._world_dev @ self._last_rel if prior else self._world_dev
+            else:
+                init = self._last_rel if prior else None
+            rpose, iters, n_corr, probs = self._icp(flat, target, draws, init)
+            if self._map_mode:
+                rpose = _fix_pose(rpose)
+                self._last_rel = _fix_pose(geo.se3_inverse(self._world_dev) @ rpose)
+                self._world_dev = rpose
+            else:
+                self._last_rel = rpose
+        # With undistortion, the model cloud is compensated with this frame's
+        # solved motion (the last relative pose in both modes): a compensated
+        # source against a distorted model matches worse than neither.
+        filtered = fe.filtered
+        if lo.undistort and target is not None:
+            filtered = undistort_cloud(filtered, self._last_rel)
+        if self._map_mode:
+            if self._device_map is None:
+                self._device_map = _zeros_cloud(lo.map.capacity, dev)
+            world = dataclasses.replace(
+                filtered, xyz=geo.transform_points(self._world_dev, filtered.xyz),
+                normal=geo.rotate_vectors(self._world_dev, filtered.normal))
+            self._device_map = voxel.voxel_map_insert(self._device_map, world, lo.map.voxel_size,
+                                                      self._world_dev[:3, 3], lo.map.n_buckets)
+        else:
+            self._model_window(filtered)
         return torch.cat([rpose.reshape(-1), torch.full((1,), float(iters), device=dev),
                           n_corr.reshape(1).to(torch.float32), probs,
                           torch.stack([fe.stats[k] for k in STATS_KEYS]).to(torch.float32)])
@@ -396,10 +488,10 @@ class Odometry:
         return grid
 
     def process_scan(self, raw_pts: np.ndarray, draws=None) -> Optional[OdometryFrame]:
-        """One frame: front-end, ICP against the window, pose integration.
-        `draws` replaces the run's own random numbers for this frame (an
-        object with GeneratorDraws' methods). Returns the frame, or None in
-        async_mode (results wait for a drain)."""
+        """One frame: front-end, ICP against the window or the map, model
+        update, pose integration. `draws` replaces the run's own random
+        numbers for this frame (an object with GeneratorDraws' methods).
+        Returns the frame, or None in async_mode (results wait for a drain)."""
         self._note_truncation(len(raw_pts))
         draws = self.draws if draws is None else draws
         first = self.frame_count == 0
@@ -409,10 +501,8 @@ class Odometry:
                                             self.last_filtered, first)
         else:
             fe = self.frontend.process(raw_pts, scores, self.last_filtered, first)
-        row = self._advance(fe, None if first else self._target(), draws)
-        self.cloud_queue.append(fe.filtered)
-        while len(self.cloud_queue) > self.cfg.laser_odometry.max_queue_size:
-            self.cloud_queue.popleft()
+        target = None if first else (self._device_map if self._map_mode else self._target())
+        row = self._advance(fe, target, draws)
         self.last_filtered = fe.filtered
         self._pending.append((self.frame_count, row[None]))
         self.frame_count += 1
@@ -455,11 +545,25 @@ class Odometry:
             return grid_to_device(raws, self.device), nvs
         return torch.from_numpy(raws).to(self.device), nvs
 
+    def _model_window(self, filtered: PointCloud) -> None:
+        """The window takes a filtered cloud: the device window [K, P] while a
+        batch runs, else the cloud queue (accumulateTargetCloud, :116-136)."""
+        if self._device_window is not None:
+            self._device_window = _map_fields(lambda a, n: torch.cat([a[1:], n[None]]),
+                                              self._device_window, filtered)
+            return
+        self.cloud_queue.append(filtered)
+        while len(self.cloud_queue) > self.cfg.laser_odometry.max_queue_size:
+            self.cloud_queue.popleft()
+
     def _batch_step(self, raws_dev: torch.Tensor, nvs: np.ndarray, draws: Sequence) -> None:
         """Frames 1.. of a run as one step on uploaded scans: each frame's
-        front-end and ICP against the device window, the rows kept on the
-        device (plo_tpu's _cached_batch_step, window mode)."""
-        window = self._window_state()
+        front-end and ICP against the device window or map, the model, world
+        pose and last relative pose kept on the device, the rows too
+        (plo_tpu's _cached_batch_step)."""
+        if not self._map_mode:
+            self._device_window = self._window_state()
+            self.cloud_queue.clear()
         last = self.last_filtered
         rows = []
         for j, d in enumerate(draws):
@@ -472,13 +576,11 @@ class Odometry:
                 if self.transfer == "int16":
                     raw = raw.to(torch.float32) * self.TRANSFER_QUANT_SCALE
                 fe = self.frontend.run(raw, int(nvs[j]), scores, last, False)
-            target = _map_fields(lambda a: a.reshape((-1,) + a.shape[2:]), window)
+            target = (self._device_map if self._map_mode else
+                      _map_fields(lambda a: a.reshape((-1,) + a.shape[2:]), self._device_window))
             rows.append(self._advance(fe, target, d))
-            window = _map_fields(lambda a, n: torch.cat([a[1:], n[None]]), window, fe.filtered)
             last = fe.filtered
         self._pending.append((self.frame_count, torch.stack(rows)))
-        self._device_window = window
-        self.cloud_queue.clear()
         self.last_filtered = last
         self.frame_count += len(rows)
         if not self.async_mode or len(self._pending) >= self.sync_every:
@@ -516,12 +618,19 @@ class Odometry:
                 k += 1
 
     def _append_frame(self, index: int, row: np.ndarray) -> None:
+        """One fetched row into the float64 chain: its pose is the rPose
+        (pose = prevLaserPose * rPose, :652) or in map mode the world pose
+        (rel = prevLaserPose^-1 * pose)."""
         stats = dict(zip(STATS_KEYS, (float(v) for v in row[24:])))
         stats.update({f"drpm_prob_{j}": float(row[18 + j]) for j in range(6)})
-        rel = row[:16].reshape(4, 4)
-        self.prev_pose = self.prev_pose @ rel
+        mat = row[:16].reshape(4, 4)
+        if self._map_mode:
+            pose, rel = mat, np.linalg.inv(self.prev_pose) @ mat
+        else:
+            pose, rel = self.prev_pose @ mat, mat
+        self.prev_pose = pose
         self.trajectory.append(OdometryFrame(
-            index=index, pose=self.prev_pose, rel_pose=rel, iterations=int(row[16]),
+            index=index, pose=pose, rel_pose=rel, iterations=int(row[16]),
             n_correspondences=int(row[17]), stats=stats))
 
     def finalize(self) -> List[OdometryFrame]:

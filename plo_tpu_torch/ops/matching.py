@@ -23,7 +23,7 @@ import torch
 
 from plo_tpu_torch.cloud import PointCloud
 from plo_tpu_torch.config import IMLSConfig, PlaneICPConfig
-from plo_tpu_torch.ops import cuda_nn, neighbors
+from plo_tpu_torch.ops import cuda_nn, grid_hash, neighbors
 from plo_tpu_torch.ops.eigh3 import eigh3_descending
 
 
@@ -203,6 +203,21 @@ def imls_search(src_xyz: torch.Tensor, target: PointCloud, cfg: IMLSConfig):
     _, nidx, nfound = neighbors.knn(src_xyz, target.xyz, target.valid,
                                     k=cfg.search_number, radius=cfg.r)
     return nidx, nfound
+
+
+def imls_search_grid(src_xyz: torch.Tensor, target: PointCloud, cfg: IMLSConfig,
+                     grid_cell: float, grid_m: int, grid_buckets: int):
+    """Candidate search through the grid hash (ops/grid_hash.py), for
+    voxel-map targets: the k nearest within r among 27*grid_m gathered
+    candidates (plo_tpu.ops.matching.imls_search_grid), with cells of edge
+    min(r, grid_cell). Exact where each cell holds at most grid_m points,
+    which a voxel map of edge voxel_size guarantees for grid_cell / voxel_size
+    <= cbrt(grid_m); neighbors between grid_cell and r can be missed.
+    Returns (nidx, nfound) as `imls_search`."""
+    cell = min(cfg.r, grid_cell)
+    gh = grid_hash.build(target.xyz, target.valid, cell, grid_buckets)
+    _, idx, ok = grid_hash.knn(gh, src_xyz, cfg.search_number, cfg.r, m=grid_m)
+    return idx, ok
 
 
 def imls_project_cached(source: PointCloud, target: PointCloud, cfg: IMLSConfig,

@@ -631,3 +631,128 @@ def test_gpu_teaser_and_icp_match_the_cpu(gen, cuda, algorithm):
     assert cuda_nn.LAUNCHES["nearest"] == 30
     I_cpu, _ = icp_umeyama.solve_icp_point_to_point(*args, 30)
     np.testing.assert_allclose(I_gpu.cpu().numpy(), I_cpu.numpy(), atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_nearest_at_the_map_shape(gen, cuda):
+    """nearest as map-mode plane-ICP calls it: 2,000 queries against a
+    65,536-slot voxel map whose valid points are a prefix in order of
+    distance from the sensor (voxel_map_insert's order), radius 1.5 m;
+    bit-equal to the plain version, one launch, no match past the prefix."""
+    cells = gen.integers(-100, 101, (65536, 3))
+    cells[:, 2] = cells[:, 2] % 12 - 6
+    pts = (cells * 0.3 + 0.15).astype(np.float32)
+    pts = pts[np.argsort((pts.astype(np.float64) ** 2).sum(1), kind="stable")]
+    valid = np.arange(65536) < 50000
+    query = (pts[gen.integers(0, 50000, 2000)] + gen.normal(0, 0.2, (2000, 3))).astype(np.float32)
+    q, t, v = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (query, pts, valid))
+    cuda_nn.reset_launches()
+    out = cuda_nn.nearest(q, t, v, 1.5)
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["nearest"] == 1
+    _assert_same(out, cuda_nn.nearest_plain(q, t, v, 1.5))
+    assert int(out[2].sum()) > 1000 and bool((out[1][out[2]] < 50000).all())
+
+
+@pytest.mark.gpu
+def test_gpu_voxel_map_and_grid_hash_match_the_cpu(gen, cuda):
+    """The map's integer and ordering work on the card equals the CPU's
+    exactly: voxel_map_insert (first arrival, occupied voxels, eviction by
+    distance) and the grid-hash build and kNN (distances as the f64-emulated
+    fma, so bit for bit)."""
+    from plo_tpu_torch.cloud import PointCloud
+    from plo_tpu_torch.ops import grid_hash, voxel
+
+    def cloud(n, scale, frac):
+        return PointCloud(
+            xyz=torch.from_numpy((gen.normal(size=(n, 3)) * scale).astype(np.float32)),
+            normal=torch.from_numpy(gen.normal(size=(n, 3)).astype(np.float32)),
+            intensity=torch.from_numpy(gen.random(n).astype(np.float32)),
+            curvature=torch.zeros(n), eigvals=torch.zeros(n, 3),
+            valid=torch.from_numpy(gen.random(n) < frac))
+
+    def to(c, dev):
+        return PointCloud(**{k: getattr(c, k).to(dev) for k in
+                             ("xyz", "normal", "intensity", "curvature", "eigvals", "valid")})
+
+    old, new = cloud(8192, 6.0, 0.6), cloud(6000, 7.0, 0.95)
+    center = torch.tensor([0.4, -0.3, 0.1])
+    ref = voxel.voxel_map_insert(old, new, 0.3, center)
+    out = voxel.voxel_map_insert(to(old, cuda), to(new, cuda), 0.3, center.to(cuda))
+    assert int(ref.valid.sum()) == 8192
+    for k in ("xyz", "normal", "intensity", "valid"):
+        assert torch.equal(getattr(out, k).cpu(), getattr(ref, k)), k
+    query = ref.xyz[:1500] + 0.05
+    gh_ref = grid_hash.build(ref.xyz, ref.valid, 1.0, 1 << 15)
+    gh_out = grid_hash.build(ref.xyz.to(cuda), ref.valid.to(cuda), 1.0, 1 << 15)
+    a = grid_hash.knn(gh_ref, query, 20, 1.0, m=64)
+    b = grid_hash.knn(gh_out, query.to(cuda), 20, 1.0, m=64)
+    assert int(a[2].sum()) > 10000
+    for x, y in zip(a, b):
+        assert torch.equal(y.cpu(), x)
+
+
+def _small_frames():
+    from plo_tpu_torch.io import synthetic
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    scans, gt = synthetic.synthetic_sequence(4, n_scans=32, azimuth_steps=450, speed=0.5,
+                                             yaw_rate=0.01, seed=3, world=world)
+    return scans, np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+
+
+def _slice_d_config(name):
+    import dataclasses as dc
+    import os
+    from plo_tpu_torch import config as cfgmod
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sensor = cfgmod.SensorConfig(n_scans=32, azimuth_resolution=0.8)
+    b1 = cfgmod.load(os.path.join(root, "configs/aloam_kitti00.json"), sensor=sensor)
+    fals = cfgmod.load(os.path.join(root, "configs/drpm_range_image.json"), sensor=sensor)
+    lo = lambda c, **kw: dc.replace(c, laser_odometry=dc.replace(c.laser_odometry, **kw))
+    normals = lambda c, m: dc.replace(c, scan_registration=dc.replace(
+        c.scan_registration, compute_normal_method=dc.replace(
+            c.scan_registration.compute_normal_method, method=m)))
+    return {"map plane-ICP": lo(b1, target_mode="map"),
+            "undistort": lo(b1, motion_prior=True, undistort=True),
+            "FALS": fals, "SRI": normals(fals, "SRI"),
+            "cross_product": normals(b1, "cross_product")}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["map plane-ICP", "undistort", "FALS", "SRI", "cross_product"])
+def test_gpu_slice_d_paths_launch_nearest_once_an_iteration(cuda, name):
+    """Map-mode plane-ICP, undistortion and the range-image and cross-product
+    normals on the card: nearest once an ICP iteration, no other kernel,
+    every pose finite."""
+    from plo_tpu_torch.models.odometry import Odometry
+    scans, _ = _small_frames()
+    odo = Odometry(_slice_d_config(name), capacity=16384, seed=0, device=cuda)
+    cuda_nn.reset_launches()
+    frames = [odo.process_scan(s) for s in scans]
+    its = sum(f.iterations for f in frames[1:])
+    assert its > 0
+    assert dict(cuda_nn.LAUNCHES) == {"nearest": its, "projected_argmin": 0,
+                                      "cylinder_stats": 0, "fps_ranks": 0}
+    assert np.isfinite(odo.poses()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("search", ["dense", "grid_hash"])
+def test_gpu_map_mode_batched_launches_nothing(cuda, search):
+    """bench --map's config at 32 x 450 through process_scans(batch=3) with
+    grid16 on the card: no kernel launch (its searches are knn and the grid
+    hash, plain in both packages), poses finite and within 0.1 m of the
+    ground truth, the world pose a rotation to 1e-5."""
+    from plo_tpu_torch import bench
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.utils import evaluate
+    scans, gt = _small_frames()
+    odo = Odometry(bench.map_config(search, 32, 0.8), capacity=16384, seed=0, device=cuda,
+                   async_mode=True, transfer="grid16")
+    cuda_nn.reset_launches()
+    odo.process_scans(scans, batch=3)
+    est = odo.poses()
+    assert not any(cuda_nn.LAUNCHES.values())
+    assert np.isfinite(est).all()
+    assert evaluate.ate_rmse(est, gt, align=False) < 0.1
+    assert abs(float(torch.linalg.det(odo._world_dev[:3, :3].double())) - 1.0) < 1e-5

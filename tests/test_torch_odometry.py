@@ -153,8 +153,8 @@ def test_odometry_without_a_device_raises_on_a_host_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    lo = port_cfg.LaserOdometryConfig(target_mode="map")
-    with pytest.raises(NotImplementedError, match="target_mode"):
+    lo = port_cfg.LaserOdometryConfig(ba=port_cfg.BAConfig(enabled=True))
+    with pytest.raises(NotImplementedError, match="bundle adjustment"):
         Odometry(port_cfg.Config(laser_odometry=lo), device="cpu")
 
 

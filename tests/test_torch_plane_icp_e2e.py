@@ -152,21 +152,18 @@ def test_aloam_resumed_from_jax_state_matches_jax(world, jax_runs, mode):
     assert_poses_close(frames, jax_traj[RESUME_AFTER + 1:])
 
 
-@pytest.mark.parametrize("what", ["cross_product", "FALS", "SRI", "map"])
+@pytest.mark.parametrize("what", ["bundle adjustment", "saver artifacts"])
 def test_options_still_unported_raise(what):
     """What the port still leaves for later raises, on an otherwise
-    supported config: the cross-product, FALS and SRI normals and map mode
-    (projected and tensor-voting IMLS, the ICP and Teaser solvers and
-    three-axis sampling run since slice C: tests/test_torch_solvers_c.py,
-    tests/test_torch_tensor_voting.py, tests/test_torch_matrix.py)."""
+    supported config: windowed bundle adjustment and the saver's artifacts
+    (the cross-product, FALS and SRI normals, map mode and undistortion run
+    since slice D: tests/test_torch_range_normals.py,
+    tests/test_torch_map_mode.py, tests/test_torch_undistort.py)."""
     cfg = aloam(port_cfg, "B1")
-    lo, sr = cfg.laser_odometry, cfg.scan_registration
-    if what == "map":
-        lo = dataclasses.replace(lo, target_mode="map")
+    if what == "bundle adjustment":
+        cfg = dataclasses.replace(cfg, laser_odometry=dataclasses.replace(
+            cfg.laser_odometry, ba=dataclasses.replace(cfg.laser_odometry.ba, enabled=True)))
     else:
-        fmt = "pointcloud" if what == "cross_product" else "range_image"
-        sr = dataclasses.replace(sr, compute_normal_method=dataclasses.replace(
-            sr.compute_normal_method, format=fmt, method=what))
-    cfg = dataclasses.replace(cfg, laser_odometry=lo, scan_registration=sr)
-    with pytest.raises(NotImplementedError):
+        cfg = dataclasses.replace(cfg, saver=dataclasses.replace(cfg.saver, enabled=True))
+    with pytest.raises(NotImplementedError, match=what):
         Odometry(cfg, capacity=CAPACITY, device="cpu")
