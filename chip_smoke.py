@@ -77,7 +77,27 @@ traceback, and a watchdog turns a hang into the same:
           capability (plo_tpu does not converge there);
        D6 SRI: D5 with method SRI; D7 cross-product: B1 with
           compute_normal_method.method="cross_product": nearest it times;
-     D3-D7 per frame at capacity 131072, gated as phase 7 (JAX_ATE_M).
+     D3-D7 per frame at capacity 131072, gated as phase 7 (JAX_ATE_M);
+ 10. slice D's last part: windowed BA, loop closure, the planetary world
+     (slice_e_configs, slice_e_sequence), launch counts set to 0 before
+     each path and read after, every pose finite, frame times and ICP
+     iterations printed, plo_tpu's own numbers (JAX_E) beside the port's:
+       E1 tests/test_ba.py's BA rescue (identity init, 1 m a frame, 12
+          frames at 32 x 450, capacity 16384) with BA off and on, per frame:
+          ATE(on) x 2 below ATE(off); one refine_window call timed;
+       E2 its batched case (10 frames): per frame and through
+          process_scans(batch=4) in async mode, positions within 0.05 m of
+          each other, the batched ATE below max(2 x per frame, 0.05 m);
+       E3 B1 with BA on (window 4) on phase 3's frames: nearest it + 7 times
+          (the ICP loop, and the recorder: 1 + 2 + 2 + 2 matches), ATE below
+          0.1 m;
+       E4 tests/test_loopclosure.py's 136-frame rectangle loop through
+          process_scans(batch=8), then close_loops: a loop edge, the endpoint
+          error cut by 3x, the ATE below 0.7x, pose 0 unchanged; the
+          odometry's and close_loops' seconds printed;
+       E5 tests/test_planetary.py's planetary frames, DRPM against Weighted
+          LS: its three claims;
+     E1, E2, E4 and E5 launch no kernel (their searches are knn).
 With --baseline DIR (an older checkout, e.g. `git archive` of a parent
 commit unpacked into a git-ignored directory), each call that phases 2 and
 2b time (MAIN_CALLS) is also made with DIR's function of the same name and
@@ -136,11 +156,32 @@ JAX_ATE_M = {"C1": 0.002480622126666324, "C2": 1.2676303351183331, "C3": 1.20008
              "D4 off": 0.00793042390687992, "D5": 0.8214545315066566,
              "D6": 0.1546565440617852, "D7": 0.0025577796593220423}
 JAX_ATE_GATE_M = 0.05
+# plo_tpu's numbers on phase 10's paths, JAX on the CPU (tests/reference_ate.py
+# E1-E5): ATEs (m), E2's largest per-frame / batched position gap (m), E4's
+# endpoint errors (m) and loop edges (i, j, correspondences), E5's worst
+# cross-track errors (m) and least DRPM probabilities.
+JAX_E = {"E1 off": 4.280728995875654, "E1 on": 0.5284734430823392,
+         "E2": 0.06786820143905097, "E2 batched": 0.06571666027546282,
+         "E2 gap": 0.005558122889156798, "E3": 0.0028565717347245555,
+         "E4 before": 0.1446818457923702, "E4 after": 0.08024550231203001,
+         "E4 end before": 0.29723754036010086, "E4 end after": 0.013542971669248548,
+         "E4 edges": [(0, 134, 451)],
+         "E5 DRPM": 2.0916503589120987, "E5 WLS": 7.636329239462856,
+         "E5 cross DRPM": 1.607342212956588e-07, "E5 cross WLS": 13.062289213663796,
+         "E5 min prob": 0.0, "E5 min prob batched": 0.0,
+         "E5 snr planetary": 0.0, "E5 snr corridor": 0.9975725412368774}
 MATRIX_FRAMES, MATRIX_ATE_M = 6, 0.1   # phase 8: the slow JAX test's frames and bound
 DRPM_RANGE_IMAGE = "configs/drpm_range_image.json"
 MAP_CAPACITY, MAP_BATCH = 57600, 4     # phase 9 D1/D2: bench_map_mode's capacity; batch
 MAP_GRID_HASH_M = 2e-3                 # phase 9 D2: grid_hash positions within this of D1's
 DET_TOLERANCE = 1e-5                   # phase 9 D1/D2: |det(R) - 1| of the world pose
+SMALL_AZIMUTH_STEPS = 450              # phase 10 E1, E2, E4, E5: 32 beams x 450
+BA_WINDOW = 4                          # phase 10: the BA window (tests/test_ba.py)
+BA_CAPACITY = 16384                    # phase 10 E1, E2, E5: the JAX tests' capacity
+BA_BATCH = 4                           # phase 10 E2: process_scans' batch
+BA_GAP_M = 0.05                        # phase 10 E2: batched positions within this of per frame
+LOOP_CAPACITY, LOOP_BATCH = 14400, 8   # phase 10 E4 (tests/test_loopclosure.py)
+LOOP_MIN_GAP, LOOP_RADIUS = 60, 4.0    # phase 10 E4: close_loops' revisit detection
 
 # Each path's ATE (m) as phase_path measured it, by path name.
 ATES = {}
@@ -955,6 +996,310 @@ def phase_slice_d(dev, scans, gt):
     return out
 
 
+def slice_e_configs(cfgmod, root):
+    """Phase 10's configs built on a config module with the port's config
+    API (plo_tpu_torch.config here; tests/reference_ate.py passes
+    plo_tpu.config): "E1 off" / "E1 on", tests/test_ba.py's BA rescue config
+    with BA off and on; E2, its _ba_cfg; E3, configs/aloam_kitti00.json with
+    BA on (window 4); E4, tests/test_loopclosure.py's headline-like config;
+    "E5 DRPM" / "E5 WLS", tests/test_planetary.py's config with each final
+    solve."""
+    import dataclasses as dc
+    small = cfgmod.SensorConfig(n_scans=32, azimuth_resolution=360.0 / SMALL_AZIMUTH_STEPS)
+
+    def ransac(max_iterations=300, final="DRPM"):
+        return cfgmod.SolveConfig(method="RANSAC", iterations=30, ransac=cfgmod.RANSACConfig(
+            max_iterations=max_iterations, distance_threshold=0.2, final_solve_method=final))
+
+    def random_imls(max_points, solve=None, **lo):
+        return cfgmod.Config(
+            scan_registration=cfgmod.ScanRegistrationConfig(sample_method=cfgmod.SampleConfig(
+                method="random", random=cfgmod.RandomSampleConfig(max_points=max_points))),
+            laser_odometry=cfgmod.LaserOdometryConfig(
+                matching_method=cfgmod.MatchingConfig(method="IMLS"),
+                solve_method=solve or ransac(), **lo),
+            sensor=small)
+
+    def ba(on, max_correspondences):
+        return cfgmod.BAConfig(enabled=on, window=BA_WINDOW, iterations=4,
+                               max_correspondences=max_correspondences)
+
+    b1 = cfgmod.load(os.path.join(root, ALOAM), sensor=cfgmod.SensorConfig(
+        n_scans=N_SCANS, azimuth_resolution=360.0 / AZIMUTH_STEPS))
+    lo = b1.laser_odometry
+    loop = cfgmod.Config(
+        scan_registration=cfgmod.ScanRegistrationConfig(
+            compute_normal_method=cfgmod.ComputeNormalConfig(format="range_image", method="pca"),
+            presample_method=cfgmod.PresampleConfig(method="geometric_features"),
+            sample_method=cfgmod.SampleConfig(
+                method="random", random=cfgmod.RandomSampleConfig(max_points=2000))),
+        laser_odometry=cfgmod.LaserOdometryConfig(
+            refresh_correspondences=False, matching_method=cfgmod.MatchingConfig(method="IMLS"),
+            solve_method=ransac(1000)),
+        sensor=small)
+    return {"E1 off": random_imls(1500, motion_prior=False, ba=ba(False, 600)),
+            "E1 on": random_imls(1500, motion_prior=False, ba=ba(True, 600)),
+            "E2": random_imls(1200, ba=ba(True, 512)),
+            "E3": dc.replace(b1, laser_odometry=dc.replace(
+                lo, ba=dc.replace(lo.ba, enabled=True, window=BA_WINDOW))),
+            "E4": loop,
+            "E5 DRPM": random_imls(1500, ransac(final="DRPM")),
+            "E5 WLS": random_imls(1500, ransac(final="Weighted LS"))}
+
+
+def slice_e_sequence(name, workers=1):
+    """Phase 10's frames, at 32 x 450 (E3 runs phase 3's own): E1 the
+    corridor at 1 m and 0.005 rad a frame, 12 frames (tests/test_ba.py's
+    rescue); E2 the corridor at 0.5 m and 0.01 rad, 10 frames; E4 the
+    136-frame rectangle loop of tests/test_loopclosure.py around its own
+    world; E5 the planetary world at 0.5 m a frame, 8 frames, and "E5
+    corridor" 2 corridor frames at that motion, the structure-rich contrast
+    of tests/test_planetary.py. Returns (scans, ground truth)."""
+    from plo_tpu_torch.io import synthetic
+    small = dict(n_scans=32, azimuth_steps=SMALL_AZIMUTH_STEPS, workers=workers)
+    corridor = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    if name == "E1":
+        return synthetic.synthetic_sequence(12, speed=1.0, yaw_rate=0.005, seed=11,
+                                            world=corridor, **small)
+    if name == "E2":
+        return synthetic.synthetic_sequence(10, speed=0.5, yaw_rate=0.01, seed=3,
+                                            world=corridor, **small)
+    if name == "E4":
+        speeds, yaw_rates = synthetic.rectangle_loop_profile(n_straight=10, n_turn=24, speed=1.0)
+        return synthetic.synthetic_sequence(len(speeds), speed=speeds, yaw_rate=yaw_rates,
+                                            seed=23, **small)
+    if name == "E5":
+        return synthetic.synthetic_sequence(
+            8, speed=0.5, yaw_rate=0.0, seed=3,
+            world=synthetic.SyntheticWorld.planetary(seed=5, n_rocks=8, extent=50.0), **small)
+    if name == "E5 corridor":
+        return synthetic.synthetic_sequence(2, speed=0.5, yaw_rate=0.0, seed=3, world=corridor,
+                                            **small)
+    raise ValueError(name)
+
+
+def relative_gt(gt):
+    """Ground-truth poses relative to the first."""
+    import numpy as np
+    return np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+
+
+def _frames(dev, name, odo, scans):
+    """The scans through odo.process_scan, each timed on the host clock up
+    to a synchronize; prints and returns the frame times (ms)."""
+    import numpy as np
+    import torch
+    ms = []
+    for s in scans:
+        t = time.perf_counter()
+        odo.process_scan(s)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t))
+    frames = odo.finalize()
+    if not np.isfinite(odo.poses()).all():
+        raise AssertionError(f"{name}: non-finite pose")
+    print(f"  {name}: frames {', '.join(f'{m:.1f}' for m in ms)} ms, ICP iterations "
+          f"{[f.iterations for f in frames]}, every pose finite", flush=True)
+    return ms
+
+
+def _batched(dev, name, odo, scans, batch):
+    """The scans through odo.process_scans(batch) (frame 0 alone, then the
+    batches); prints the wall time and returns it (ms)."""
+    import numpy as np
+    import torch
+    t = time.perf_counter()
+    odo.process_scans(scans, batch=batch)
+    frames = odo.finalize()
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t)
+    if not np.isfinite(odo.poses()).all():
+        raise AssertionError(f"{name}: non-finite pose")
+    print(f"  {name}: {len(scans)} frames in {ms:.1f} ms through process_scans(batch={batch}), "
+          f"ICP iterations {[f.iterations for f in frames]}, every pose finite", flush=True)
+    return ms
+
+
+def _no_launch(name, zero):
+    """Fails where a path that reaches none of the kernels launched one."""
+    from plo_tpu_torch.ops import cuda_nn
+    launches = dict(cuda_nn.LAUNCHES)
+    if launches != zero:
+        raise AssertionError(f"{name}: the path launched a kernel: {launches}")
+    return launches
+
+
+def _ate(est, gt):
+    from plo_tpu_torch.utils import evaluate
+    return evaluate.ate_rmse(est, relative_gt(gt), align=False)
+
+
+def phase_slice_e(dev, scans, gt):
+    """Phase 10 (see the module docstring). Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.models.loopclosure import close_loops
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.parallel import ba as ba_ops
+
+    cfgs = slice_e_configs(cfgmod, os.path.dirname(os.path.abspath(__file__)))
+    zero = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
+    t0 = time.perf_counter()
+    out = {}
+
+    # E1: BA rescues the identity-init regime at 1 m a frame.
+    e1_scans, e1_gt = slice_e_sequence("E1", workers=8)
+    ate = {}
+    for key in ("E1 off", "E1 on"):
+        odo = Odometry(cfgs[key], capacity=BA_CAPACITY, seed=0, device=dev)
+        torch.cuda.synchronize(dev)
+        cuda_nn.reset_launches()
+        _frames(dev, key, odo, e1_scans)
+        out[key] = _no_launch(key, zero)
+        ate[key] = _ate(odo.poses(), e1_gt)
+    window = odo.ba_window(odo.frame_count - 1)
+    refine = lambda: ba_ops.refine_window(*window[1])
+    refine_ms, refine_call_ms = cuda_ms(refine), call_ms(refine)
+    print(f"E1: ATE {ate['E1 off']:.4f} m with BA off, {ate['E1 on']:.4f} m with BA on "
+          f"(plo_tpu on the CPU: {JAX_E['E1 off']:.4f}, {JAX_E['E1 on']:.4f}); refine_window "
+          f"(window {BA_WINDOW}, 5 pairs x {window[1][1].shape[1]} correspondences, "
+          f"{cfgs['E1 on'].laser_odometry.ba.iterations} Gauss-Newton steps) {refine_ms:.3f} ms "
+          f"device time, {refine_call_ms:.3f} ms one call", flush=True)
+    if not ate["E1 on"] * 2.0 < ate["E1 off"]:
+        raise AssertionError(f"E1: BA did not halve the ATE: {ate}")
+
+    # E2: the batched driver records in its loop and refines at the drain.
+    e2_scans, e2_gt = slice_e_sequence("E2", workers=8)
+    cuda_nn.reset_launches()
+    per_frame = Odometry(cfgs["E2"], capacity=BA_CAPACITY, seed=0, device=dev)
+    _frames(dev, "E2 per frame", per_frame, e2_scans)
+    batched = Odometry(cfgs["E2"], capacity=BA_CAPACITY, seed=0, device=dev, async_mode=True)
+    _batched(dev, "E2 batched", batched, e2_scans, BA_BATCH)
+    out["E2"] = _no_launch("E2", zero)
+    p_pf, p_b = per_frame.poses(), batched.poses()
+    gap = float(np.linalg.norm(p_b[:, :3, 3] - p_pf[:, :3, 3], axis=1).max())
+    ate_pf, ate_b = _ate(p_pf, e2_gt), _ate(p_b, e2_gt)
+    print(f"E2: ATE {ate_pf:.4f} m per frame, {ate_b:.4f} m batched, positions within "
+          f"{gap:.4f} m (plo_tpu: {JAX_E['E2']:.4f}, {JAX_E['E2 batched']:.4f}, "
+          f"{JAX_E['E2 gap']:.4f})", flush=True)
+    if not (gap < BA_GAP_M and ate_b < max(2 * ate_pf, BA_GAP_M)):
+        raise AssertionError(f"E2: batched BA {gap} m from per frame, ATE {ate_b} / {ate_pf}")
+
+    # E3: B1 with BA: nearest in the ICP loop and in the recorder, one match
+    # for the consecutive record from frame 2 on and one for the skip record
+    # from frame 3 on.
+    records = (N_FRAMES - 1) + (N_FRAMES - 2)
+    out["E3"] = phase_path(dev, "E3", cfgs["E3"], scans, gt,
+                           lambda it: {**zero, "nearest": it + records},
+                           jax_ate=JAX_E["E3"])
+
+    # E4: odometry around the rectangle loop, then loop closure.
+    e4_scans, e4_gt = slice_e_sequence("E4", workers=8)
+    gtr = relative_gt(e4_gt)
+    cuda_nn.reset_launches()
+    odo = Odometry(cfgs["E4"], capacity=LOOP_CAPACITY, seed=0, device=dev, async_mode=True)
+    odo_ms = _batched(dev, "E4 odometry", odo, e4_scans, LOOP_BATCH)
+    poses = odo.poses()
+    t = time.perf_counter()
+    fixed, edges = close_loops(cfgs["E4"], e4_scans, poses, min_gap=LOOP_MIN_GAP,
+                               radius=LOOP_RADIUS, capacity=LOOP_CAPACITY, device=dev)
+    loop_s = time.perf_counter() - t
+    out["E4"] = _no_launch("E4", zero)
+    end = lambda p: float(np.linalg.norm(p[-1, :3, 3] - gtr[-1, :3, 3]))
+    ate_before, ate_after = _ate(poses, e4_gt), _ate(fixed, e4_gt)
+    print(f"E4: odometry {odo_ms / 1e3:.2f} s for {len(e4_scans)} frames, close_loops "
+          f"{loop_s:.2f} s; edges {[(i, j, n) for i, j, _, n in edges]}; ATE {ate_before:.4f} -> "
+          f"{ate_after:.4f} m, endpoint {end(poses):.4f} -> {end(fixed):.4f} m (plo_tpu: edges "
+          f"{JAX_E['E4 edges']}, ATE {JAX_E['E4 before']:.4f} -> {JAX_E['E4 after']:.4f}, "
+          f"endpoint {JAX_E['E4 end before']:.4f} -> {JAX_E['E4 end after']:.4f})", flush=True)
+    if not edges:
+        raise AssertionError("E4: no loop edge on the closed course")
+    if not (end(fixed) < end(poses) / 3 and ate_after < 0.7 * ate_before):
+        raise AssertionError(f"E4: loop closure did not correct the drift: ATE {ate_before} -> "
+                             f"{ate_after}, endpoint {end(poses)} -> {end(fixed)}")
+    if not np.array_equal(fixed[0], poses[0]):
+        raise AssertionError("E4: loop closure moved pose 0")
+
+    # E5: the planetary world, DRPM against Weighted LS.
+    out.update(phase_planetary(dev, cfgs, zero))
+    print(f"slice E: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_planetary(dev, cfgs, zero):
+    """Phase 10's E5: tests/test_planetary.py's three claims on the card.
+    Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch.models.odometry import (GeneratorDraws, Odometry, match_once,
+                                               prepare_target)
+    from plo_tpu_torch.models.pipeline import FrontEnd
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.solvers.drpm import solve_drpm
+
+    e5_scans, e5_gt = slice_e_sequence("E5", workers=8)
+    gtr = relative_gt(e5_gt)
+    probs = [f"drpm_prob_{i}" for i in range(6)]
+    thr = cfgs["E5 DRPM"].laser_odometry.solve_method.ransac.drpm_threshold
+    cuda_nn.reset_launches()
+    runs = {}
+    for key in ("E5 DRPM", "E5 WLS"):
+        runs[key] = Odometry(cfgs[key], capacity=BA_CAPACITY, seed=0, device=dev)
+        _frames(dev, key, runs[key], e5_scans)
+    batched = Odometry(cfgs["E5 DRPM"], capacity=BA_CAPACITY, seed=0, device=dev,
+                       async_mode=True)
+    _batched(dev, "E5 DRPM batched", batched, e5_scans, BA_BATCH)
+
+    def min_prob(scans):
+        """tests/test_planetary.py's min_prob_on: frame 2 matched against
+        frame 1, the least DRPM probability of one solve."""
+        cfg = cfgs["E5 DRPM"]
+        r = cfg.laser_odometry.solve_method.ransac
+        fe = FrontEnd(cfg, capacity=BA_CAPACITY, device=dev)
+        draws = GeneratorDraws(torch.Generator(device=dev).manual_seed(0), dev)
+        prev = fe.process(scans[0], draws.frontend(fe.n_draws(True), fe.filtered_capacity),
+                          None, True)
+        cur = fe.process(scans[1], draws.frontend(fe.n_draws(False), fe.filtered_capacity),
+                         prev.filtered, False)
+        tgt_n, tgt_ok = prepare_target(cfg, prev.filtered, False)
+        res = match_once(cfg, cur.flat, prev.filtered, tgt_n, tgt_ok)
+        w = res.valid.to(torch.float32)
+        w = w / w.sum().clamp_min(1.0)
+        return float(solve_drpm(cur.flat.xyz, res.y, res.normal, res.valid, w, r.drpm_threshold,
+                                r.drpm_stdev_points, r.drpm_stdev_normals)[2].min())
+
+    p_flat, p_rich = min_prob(e5_scans), min_prob(slice_e_sequence("E5 corridor")[0])
+    launches = _no_launch("E5", zero)
+    est = {k: o.poses() for k, o in runs.items()}
+    cross = {k: float(np.abs(p[:, 1, 3] - gtr[:, 1, 3]).max()) for k, p in est.items()}
+    ate = {k: _ate(p, e5_gt) for k, p in est.items()}
+    min_pf = min(min(f.stats[k] for k in probs) for f in runs["E5 DRPM"].trajectory[1:])
+    min_b = min(min(f.stats[k] for k in probs) for f in batched.trajectory[1:])
+    first_ones = all(runs["E5 DRPM"].trajectory[0].stats[k] == 1.0 for k in probs)
+    end_drpm = float(np.linalg.norm(est["E5 DRPM"][-1, :3, 3] - gtr[-1, :3, 3]))
+    total = float(np.linalg.norm(gtr[-1, :3, 3]))
+    print(f"E5: ATE DRPM {ate['E5 DRPM']:.4f} m, WLS {ate['E5 WLS']:.4f} m; cross-track DRPM "
+          f"{cross['E5 DRPM']:.3g} m, WLS {cross['E5 WLS']:.3f} m; least DRPM probability "
+          f"{min_pf:.3g} per frame, {min_b:.3g} batched (threshold {thr}); SNR probe "
+          f"{p_flat:.3g} planetary, {p_rich:.4f} corridor (plo_tpu: ATE {JAX_E['E5 DRPM']:.4f} / "
+          f"{JAX_E['E5 WLS']:.4f}, cross-track {JAX_E['E5 cross DRPM']:.3g} / "
+          f"{JAX_E['E5 cross WLS']:.3f}, SNR {JAX_E['E5 snr planetary']} / "
+          f"{JAX_E['E5 snr corridor']:.4f})", flush=True)
+    claims = {
+        "WLS hallucinates lateral motion": cross["E5 WLS"] > 1.0,
+        "DRPM holds still": cross["E5 DRPM"] < 0.10 and ate["E5 DRPM"] < 0.7 * ate["E5 WLS"]
+        and end_drpm <= total + 0.1,
+        "DRPM probabilities in the stats": first_ones and min_pf < thr and min_b < thr,
+        "the SNR branch is scene-driven": p_flat < thr < p_rich,
+    }
+    failed = [c for c, ok in claims.items() if not ok]
+    if failed:
+        raise AssertionError(f"E5: claims failed: {failed}")
+    return {"E5": launches}
+
+
 def phase_matrix(dev):
     """Phase 8: the 36 combinations of plo_tpu_torch.method_matrix on the card."""
     from plo_tpu_torch import method_matrix
@@ -997,6 +1342,7 @@ def main(argv=None):
     }
     phase_matrix(dev)
     by_path.update(phase_slice_d(dev, scans, gt))
+    by_path.update(phase_slice_e(dev, scans, gt))
     main_path = {"nearest": "B1", "projected_argmin": "B2",
                  "cylinder_stats": "default", "fps_ranks": "default"}
     for rec in records:

@@ -18,13 +18,16 @@ What the port covers, in `Odometry.process_scan` and `process_scans`:
   * the target: the window of the last filtered clouds (target_mode
     "window") or a persistent world-frame voxel map ("map"), searched dense
     or through the grid hash, with a sync-free SO(3) projection of the world
-    pose; optional per-point motion compensation (undistort).
+    pose; optional per-point motion compensation (undistort);
+  * windowed bundle adjustment (laser_odometry.ba, window mode), per frame
+    and batched (parallel/ba.py), and loop closure on a finished trajectory
+    (models/loopclosure.py: close_loops).
 So the default `Config()`, bench.py's config, every shipped config, map
 mode and the 36 combinations of the method matrix (method_matrix.py) run.
 The four TPU kernels of plo_tpu (nearest, projected_argmin,
 cylinder_stats, fps_ranks) are CUDA C++ kernels for sm_90a in csrc/, bound
-with ctypes in ops/cuda_nn.py. Windowed bundle adjustment and the saver's
-artifacts raise NotImplementedError.
+with ctypes in ops/cuda_nn.py. The saver's artifacts raise
+NotImplementedError.
 
 Entry points take an explicit `device`. `None` means the CUDA card and raises
 where there is none; the CPU runs only when a caller asks for it

@@ -52,7 +52,9 @@ def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.n
                               cloud_queue: Iterable[Mapping[str, np.ndarray]] = (),
                               window: Optional[Mapping[str, np.ndarray]] = None,
                               device_map: Optional[Mapping[str, np.ndarray]] = None,
-                              world: Optional[np.ndarray] = None) -> Odometry:
+                              world: Optional[np.ndarray] = None,
+                              ba_clouds: Iterable[Mapping[str, np.ndarray]] = (),
+                              ba_corr: Optional[Mapping[int, tuple]] = None) -> Odometry:
     """Load a JAX Odometry's carried state into a port Odometry so that the
     next `process_scan` or `process_scans` resumes where JAX stopped: the
     last filtered cloud (major-axis sampling's reference), the target window
@@ -60,8 +62,11 @@ def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.n
     stacked [K, P] `window` its `_window_state()` returns), the frame count,
     the last relative pose (the motion prior's init and undistortion's
     sweep motion), the float64 trajectory (`dataclasses.asdict` of its
-    OdometryFrames) and, in map mode, the voxel map (its `_device_map` as a
-    cloud) and the f32 world pose (its `_world_dev`)."""
+    OdometryFrames), in map mode the voxel map (its `_device_map` as a
+    cloud) and the f32 world pose (its `_world_dev`), and with bundle
+    adjustment the filtered clouds its records match against (its
+    `_ba_clouds`) and the records {k: (rec_prev, rec_skip or None)}, each
+    record a tuple of arrays (s, y, n, valid) (its `_ba_corr`)."""
     dev = odo.device
     odo.last_filtered = cloud_from_numpy(last_filtered, dev)
     odo.cloud_queue = deque(cloud_from_numpy(c, dev) for c in cloud_queue)
@@ -69,6 +74,12 @@ def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.n
     odo._device_map = None if device_map is None else cloud_from_numpy(device_map, dev)
     odo._world_dev = (None if world is None else
                       torch.as_tensor(np.asarray(world, np.float32), device=dev))
+    odo._ba_clouds.clear()
+    odo._ba_clouds.extend(cloud_from_numpy(c, dev) for c in ba_clouds)
+    record = lambda rec: None if rec is None else tuple(
+        torch.as_tensor(np.array(a), device=dev) for a in rec)
+    odo._ba_corr = {int(k): (record(prev), record(skip))
+                    for k, (prev, skip) in (ba_corr or {}).items()}
     odo.frame_count = int(frame_count)
     odo._last_rel = (None if last_rel is None else
                      torch.as_tensor(np.asarray(last_rel, np.float32), device=dev))

@@ -88,11 +88,12 @@ def rotation_angle(R: torch.Tensor) -> torch.Tensor:
 
 
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Build a 4x4 homogeneous transform."""
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    """Build a 4x4 homogeneous transform. It starts from eye(4): writing the
+    Python scalar 1.0 into a CUDA tensor is a host-to-device copy that waits
+    for the host."""
+    T = torch.eye(4, dtype=R.dtype, device=R.device).repeat(R.shape[:-2] + (1, 1))
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
     return T
 
 

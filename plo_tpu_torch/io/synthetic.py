@@ -57,6 +57,23 @@ class SyntheticWorld:
         return SyntheticWorld(boxes=boxes.astype(np.float64))
 
     @staticmethod
+    def planetary(seed: int = 0, n_rocks: int = 8, extent: float = 50.0,
+                  rock_size: Tuple[float, float] = (0.3, 1.0)) -> "SyntheticWorld":
+        """Sparse planetary terrain (the reference's target domain,
+        README.md:77,127): a flat ground plane with a handful of sub-meter
+        rocks. Nearly every surface normal is +z, so point-to-plane
+        constraints pin only {z, roll, pitch}; x/y/yaw are degenerate up to
+        the few rock returns — the regime DRPM (solver.cpp:486-603) exists
+        for."""
+        rng = np.random.default_rng(seed)
+        cx = rng.uniform(2.0, extent, n_rocks)
+        cy = rng.uniform(-extent * 0.3, extent * 0.3, n_rocks)
+        s = rng.uniform(rock_size[0], rock_size[1], n_rocks)
+        boxes = np.stack([cx - s / 2, cy - s / 2, np.zeros(n_rocks),
+                          cx + s / 2, cy + s / 2, s * 0.8], axis=1)
+        return SyntheticWorld(boxes=boxes.astype(np.float64))
+
+    @staticmethod
     def around_path(path_xy: np.ndarray, seed: int = 0, n_boxes: int = 120,
                     clearance: float = 6.0, spread: float = 35.0) -> "SyntheticWorld":
         """Boxes scattered around an arbitrary trajectory with a guaranteed
@@ -149,6 +166,50 @@ def render_scan(
     return np.concatenate([pts, refl], axis=1).astype(np.float32)
 
 
+def rectangle_loop_profile(n_straight: int = 20, n_turn: int = 24,
+                           speed: float = 1.2, turn_speed_factor: float = 0.7,
+                           laps: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-frame (speeds, yaw_rates) for a closed rectangular loop — four
+    straights and four 90-degree turns per lap, ending back at the start.
+    The default turn rate is 90 deg / 24 frames = 3.75 deg a frame. The run
+    starts from rest: the speed ramps in over the first 6 frames, and speed
+    and yaw steps are low-passed (a cold start at full speed is the
+    catastrophic regime in which the first frame's correspondences fall
+    outside the anchor gate)."""
+    seg_speed = np.concatenate([np.full(n_straight, speed),
+                                np.full(n_turn, speed * turn_speed_factor)])
+    seg_yaw = np.concatenate([np.zeros(n_straight),
+                              np.full(n_turn, (np.pi / 2) / n_turn)])
+    speeds = np.tile(seg_speed, 4 * laps)
+    yaw_rates = np.tile(seg_yaw, 4 * laps)
+    ramp = min(6, len(speeds))
+    speeds[:ramp] *= np.linspace(0.25, 1.0, ramp)
+    kern = np.ones(5) / 5.0
+    speeds = np.convolve(speeds, kern, mode="same")
+    yaw_rates = np.convolve(yaw_rates, kern, mode="same")
+    return speeds, yaw_rates
+
+
+def trajectory(n_frames: int, speed=1.0, yaw_rate=0.01,
+               sensor_height: float = 1.7) -> np.ndarray:
+    """The ground-truth poses [n_frames, 4, 4] of synthetic_sequence: the
+    sensor drives forward at `speed` m a frame turning at `yaw_rate` rad a
+    frame (scalars or per-frame arrays)."""
+    speeds = np.broadcast_to(np.asarray(speed, np.float64), (n_frames,))
+    yaw_rates = np.broadcast_to(np.asarray(yaw_rate, np.float64), (n_frames,))
+    poses = np.zeros((n_frames, 4, 4))
+    x, y, yaw = 0.0, 0.0, 0.0
+    for i in range(n_frames):
+        c, s = np.cos(yaw), np.sin(yaw)
+        poses[i] = np.array(
+            [[c, -s, 0, x], [s, c, 0, y], [0, 0, 1, sensor_height], [0, 0, 0, 1.0]]
+        )
+        x += speeds[i] * np.cos(yaw)
+        y += speeds[i] * np.sin(yaw)
+        yaw += yaw_rates[i]
+    return poses
+
+
 def synthetic_sequence(
     n_frames: int,
     n_scans: int = 64,
@@ -172,18 +233,7 @@ def synthetic_sequence(
     (tools/method_matrix.py renders its sequence at 0.02 m).
     """
     # Trajectory first, so a generated world can be carved around it.
-    speeds = np.broadcast_to(np.asarray(speed, np.float64), (n_frames,))
-    yaw_rates = np.broadcast_to(np.asarray(yaw_rate, np.float64), (n_frames,))
-    poses = np.zeros((n_frames, 4, 4))
-    x, y, yaw = 0.0, 0.0, 0.0
-    for i in range(n_frames):
-        c, s = np.cos(yaw), np.sin(yaw)
-        poses[i] = np.array(
-            [[c, -s, 0, x], [s, c, 0, y], [0, 0, 1, sensor_height], [0, 0, 0, 1.0]]
-        )
-        x += speeds[i] * np.cos(yaw)
-        y += speeds[i] * np.sin(yaw)
-        yaw += yaw_rates[i]
+    poses = trajectory(n_frames, speed, yaw_rate, sensor_height)
     if world is None:
         world = SyntheticWorld.around_path(poses[:, :2, 3], seed=seed)
     jobs = [dict(world=world, pose=poses[i], n_scans=n_scans, azimuth_steps=azimuth_steps,

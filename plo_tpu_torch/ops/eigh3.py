@@ -41,9 +41,9 @@ def eigvals3_descending(A: torch.Tensor) -> torch.Tensor:
 
 
 def _unit(k: int, like: torch.Tensor) -> torch.Tensor:
-    e = torch.zeros_like(like)
-    e[..., k] = 1.0
-    return e
+    """The k-th unit vector, shaped like `like` [..., 3]. Taken from eye(3):
+    a Python scalar written into a CUDA tensor waits for the host."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[k].expand(like.shape)
 
 
 def _null_vector(M: torch.Tensor) -> torch.Tensor:

@@ -77,7 +77,9 @@ def voxel_map_insert(map_cloud: PointCloud, new_cloud: PointCloud, leaf_size: fl
     mb = _buckets(map_cloud.xyz, map_cloud.valid, leaf_size, n_buckets)
     occupied = torch.zeros(n_buckets + 1, dtype=torch.bool, device=dev)
     occupied[mb] = map_cloud.valid   # every valid point writes True; invalid ones the spare
-    occupied[n_buckets] = False
+    # The spare bucket is never occupied (not by a scalar write: a Python
+    # scalar written into a CUDA tensor waits for the host).
+    occupied = torch.cat([occupied[:n_buckets], occupied.new_zeros(1)])
 
     nb = _buckets(new_cloud.xyz, new_cloud.valid, leaf_size, n_buckets)
     idx = torch.arange(p, device=dev)

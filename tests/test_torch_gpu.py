@@ -756,3 +756,81 @@ def test_gpu_map_mode_batched_launches_nothing(cuda, search):
     assert np.isfinite(est).all()
     assert evaluate.ate_rmse(est, gt, align=False) < 0.1
     assert abs(float(torch.linalg.det(odo._world_dev[:3, :3].double())) - 1.0) < 1e-5
+
+
+@pytest.mark.gpu
+def test_gpu_refine_window_matches_the_cpu(gen, cuda):
+    """BA's Gauss-Newton window refine on the card against the CPU on the
+    same exact plane correspondences (consecutive and skip pairs of a
+    4-pose window, some invalid) and perturbed poses: within 1e-5 (f32
+    reductions in another order), with torch's sync debug mode raising on
+    any synchronizing call inside it."""
+    from plo_tpu_torch import geometry as geo
+    from plo_tpu_torch.parallel import ba
+    K, N = 4, 512
+    step = geo.make_se3(geo.exp_so3(torch.tensor([0.0, 0.0, 0.05], dtype=torch.float64)),
+                        torch.tensor([0.5, 0.02, 0.0], dtype=torch.float64)).numpy()
+    gt = [np.eye(4)]
+    for _ in range(K - 1):
+        gt.append(gt[-1] @ step)
+    pairs = ((0, 1), (1, 2), (2, 3), (0, 2), (1, 3))
+    blocks = []
+    for i, j in pairs:
+        pw = np.c_[gen.uniform(-10, 10, (N, 3)), np.ones(N)]
+        nw = gen.normal(size=(N, 3))
+        nw /= np.linalg.norm(nw, axis=1, keepdims=True)
+        blocks.append(((np.linalg.inv(gt[j]) @ pw.T).T[:, :3],
+                       (np.linalg.inv(gt[i]) @ pw.T).T[:, :3],
+                       (np.linalg.inv(gt[i])[:3, :3] @ nw.T).T))
+    src, ref, nrm = (np.stack([b[f] for b in blocks]).astype(np.float32) for f in range(3))
+    valid = gen.random((len(pairs), N)) > 0.1
+    poses = np.stack(gt).copy()
+    for k in range(1, K):
+        poses[k, :3, 3] += gen.normal(size=3) * 0.05
+    args = [torch.from_numpy(a) for a in (poses.astype(np.float32), src, ref, nrm, valid)]
+    cpu = ba.refine_window(*args, K, 4, 1e-6, pairs, 0.05)
+    dev_args = [a.to(cuda) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ba.refine_window(*dev_args, K, 4, 1e-6, pairs, 0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-5)
+    assert np.abs(cpu.numpy()[1:, :3, 3] - np.stack(gt)[1:, :3, 3]).max() < 1e-3
+
+
+@pytest.mark.gpu
+def test_gpu_record_corr_with_nearest_matches_the_cpu(cuda):
+    """BA's correspondence recorder on configs/aloam_kitti00.json
+    (plane-ICP) on the card: one nearest launch, and the record against the
+    CPU's. The relative pose is the identity, so the moved source is exact
+    on both devices (at another pose the card's matmul rounds otherwise and
+    a correspondence at the radius gate can flip, reordering the record):
+    mask, order, source rows and target normals exactly, the projected
+    targets within 1e-5 m ((x - p) . n sums in another order)."""
+    import dataclasses as dc
+    import os
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.models.odometry import GeneratorDraws, record_corr
+    from plo_tpu_torch.models.pipeline import FrontEnd
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = cfgmod.load(os.path.join(root, "configs/aloam_kitti00.json"),
+                      sensor=cfgmod.SensorConfig(n_scans=32, azimuth_resolution=0.8))
+    cfg = dc.replace(cfg, laser_odometry=dc.replace(cfg.laser_odometry, ba=dc.replace(
+        cfg.laser_odometry.ba, enabled=True, max_correspondences=2000)))
+    scans, _ = _small_frames()
+    fe = FrontEnd(cfg, capacity=16384, device="cpu")
+    draws = GeneratorDraws(torch.Generator().manual_seed(0), torch.device("cpu"))
+    prev = fe.process(scans[0], draws.frontend(1, fe.filtered_capacity), None, True)
+    cur = fe.process(scans[1], draws.frontend(1, fe.filtered_capacity), prev.filtered, False)
+    rel = torch.eye(4)
+    ref = record_corr(cfg, cur.flat, prev.filtered, rel)
+    cuda_nn.reset_launches()
+    out = [a.cpu() for a in record_corr(cfg, _to(cur.flat, cuda), _to(prev.filtered, cuda),
+                                        rel.to(cuda))]
+    assert cuda_nn.LAUNCHES["nearest"] == 1
+    assert 300 < int(ref[3].sum()) < 2000
+    assert torch.equal(out[3], ref[3]) and torch.equal(out[0], ref[0])
+    assert torch.equal(out[2], ref[2])
+    torch.testing.assert_close(out[1], ref[1], rtol=0.0, atol=1e-5)

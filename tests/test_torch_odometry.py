@@ -153,9 +153,10 @@ def test_odometry_without_a_device_raises_on_a_host_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    lo = port_cfg.LaserOdometryConfig(ba=port_cfg.BAConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="bundle adjustment"):
-        Odometry(port_cfg.Config(laser_odometry=lo), device="cpu")
+    """The saver's artifacts are the one option the port still refuses
+    (windowed BA runs: tests/test_torch_ba.py)."""
+    with pytest.raises(NotImplementedError, match="saver artifacts"):
+        Odometry(port_cfg.Config(saver=port_cfg.SaverConfig(enabled=True)), device="cpu")
 
 
 _BLOCK_JAX = """

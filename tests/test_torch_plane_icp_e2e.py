@@ -152,18 +152,12 @@ def test_aloam_resumed_from_jax_state_matches_jax(world, jax_runs, mode):
     assert_poses_close(frames, jax_traj[RESUME_AFTER + 1:])
 
 
-@pytest.mark.parametrize("what", ["bundle adjustment", "saver artifacts"])
+@pytest.mark.parametrize("what", ["saver artifacts"])
 def test_options_still_unported_raise(what):
     """What the port still leaves for later raises, on an otherwise
-    supported config: windowed bundle adjustment and the saver's artifacts
-    (the cross-product, FALS and SRI normals, map mode and undistortion run
-    since slice D: tests/test_torch_range_normals.py,
-    tests/test_torch_map_mode.py, tests/test_torch_undistort.py)."""
+    supported config: the saver's artifacts (windowed bundle adjustment
+    runs since slice D's last part: tests/test_torch_ba.py)."""
     cfg = aloam(port_cfg, "B1")
-    if what == "bundle adjustment":
-        cfg = dataclasses.replace(cfg, laser_odometry=dataclasses.replace(
-            cfg.laser_odometry, ba=dataclasses.replace(cfg.laser_odometry.ba, enabled=True)))
-    else:
-        cfg = dataclasses.replace(cfg, saver=dataclasses.replace(cfg.saver, enabled=True))
+    cfg = dataclasses.replace(cfg, saver=dataclasses.replace(cfg.saver, enabled=True))
     with pytest.raises(NotImplementedError, match=what):
         Odometry(cfg, capacity=CAPACITY, device="cpu")
