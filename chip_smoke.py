@@ -97,7 +97,26 @@ traceback, and a watchdog turns a hang into the same:
           odometry's and close_loops' seconds printed;
        E5 tests/test_planetary.py's planetary frames, DRPM against Weighted
           LS: its three claims;
-     E1, E2, E4 and E5 launch no kernel (their searches are knn).
+     E1, E2, E4 and E5 launch no kernel (their searches are knn);
+ 11. the CLI: plo_tpu_torch.cli.main(argv) in process, in a temporary
+     directory deleted after, launch counts set to 0 before each run and
+     read after, the CLI's frame lines and evaluation echoed:
+       F1 tests/test_kitti_density.py's drill at full width: 4 HDL-64 x 1900
+          scans (above 110k points each, no truncation) written in the KITTI
+          layout and read through the native prefetcher at capacity 131072,
+          its plane-ICP + LS config, --save-artifacts --checkpoint-every 2
+          --eval-gt: nearest once per ICP iteration of frames 2-4, the
+          reference's artifact files in their formats, ATE below 0.25 m;
+          the artifacts' size and the saver's seconds printed;
+       F2 F1 without artifacts, 2 frames checkpointed, then the last 2
+          resumed from the checkpoint: positions within 1e-4 m of F1's;
+       F3 the CLI's defaults (synthetic, 64 x 1800, capacity 131072, the
+          default config) for 5 frames: cylinder_stats and fps_ranks 4
+          times each, every pose finite, the ATE gated as phase 7's
+          (JAX_F, tests/reference_ate.py F1 F3);
+     and a DeviceTrace (torch.profiler) of one F1 frame holding a device
+     event of nearest_kernel; the prefetcher's read time and the phase's
+     seconds printed.
 With --baseline DIR (an older checkout, e.g. `git archive` of a parent
 commit unpacked into a git-ignored directory), each call that phases 2 and
 2b time (MAIN_CALLS) is also made with DIR's function of the same name and
@@ -107,7 +126,8 @@ The second-to-last line is the kernels' JSON record; the last line, printed
 only when every phase passed, is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and plo_tpu_torch only (never JAX or plo_tpu); writes
-nothing but the kernel builds under plo_tpu_torch/_build/ (and DIR's).
+the kernel and loader builds under plo_tpu_torch/_build/ (and DIR's), and
+phase 11's files in a temporary directory that it deletes.
 """
 import argparse
 import faulthandler
@@ -170,6 +190,9 @@ JAX_E = {"E1 off": 4.280728995875654, "E1 on": 0.5284734430823392,
          "E5 cross DRPM": 1.607342212956588e-07, "E5 cross WLS": 13.062289213663796,
          "E5 min prob": 0.0, "E5 min prob batched": 0.0,
          "E5 snr planetary": 0.0, "E5 snr corridor": 0.9975725412368774}
+# plo_tpu's ATE (m) on phase 11's F1 and F3 command lines, through its own
+# CLI with --platform cpu (tests/reference_ate.py F1 F3).
+JAX_F = {"F1": 0.0028641061868325273, "F3": 0.0016377498046388319}
 MATRIX_FRAMES, MATRIX_ATE_M = 6, 0.1   # phase 8: the slow JAX test's frames and bound
 DRPM_RANGE_IMAGE = "configs/drpm_range_image.json"
 MAP_CAPACITY, MAP_BATCH = 57600, 4     # phase 9 D1/D2: bench_map_mode's capacity; batch
@@ -182,6 +205,12 @@ BA_BATCH = 4                           # phase 10 E2: process_scans' batch
 BA_GAP_M = 0.05                        # phase 10 E2: batched positions within this of per frame
 LOOP_CAPACITY, LOOP_BATCH = 14400, 8   # phase 10 E4 (tests/test_loopclosure.py)
 LOOP_MIN_GAP, LOOP_RADIUS = 60, 4.0    # phase 10 E4: close_loops' revisit detection
+KITTI_FRAMES, KITTI_AZIMUTH_STEPS = 4, 1900   # phase 11 F1: tests/test_kitti_density.py's drill
+KITTI_ATE_BOUND_M = 0.25               # phase 11 F1: the drill's bound
+KITTI_MIN_POINTS = 110_000             # phase 11 F1: KITTI-class density a scan
+CKPT_EVERY = 2                         # phase 11 F1, F2: --checkpoint-every
+RESUME_GAP_M = 1e-4                    # phase 11 F2: resumed positions within this of F1's
+CLI_FRAMES = 5                         # phase 11 F3: the CLI's own synthetic sequence
 
 # Each path's ATE (m) as phase_path measured it, by path name.
 ATES = {}
@@ -1311,6 +1340,264 @@ def phase_matrix(dev):
         raise AssertionError(f"matrix: {fail} of {len(rows)} combinations did not converge")
 
 
+def kitti_drill(synthetic, root, workers=1):
+    """tests/test_kitti_density.py's sequence: 4 frames of the corridor world
+    (seed 7, 140 boxes, 150 m) at HDL-64 x 1900, 1.0 m and 0.005 rad a frame,
+    scan seed 3, written in the KITTI layout under `root` with
+    `synthetic.write_kitti_layout` (tests/reference_ate.py passes the same
+    module). Returns the scans' point counts."""
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=150.0)
+    scans, gt = synthetic.synthetic_sequence(KITTI_FRAMES, n_scans=N_SCANS,
+                                             azimuth_steps=KITTI_AZIMUTH_STEPS, speed=1.0,
+                                             yaw_rate=0.005, seed=3, world=world,
+                                             **({"workers": workers} if workers > 1 else {}))
+    synthetic.write_kitti_layout(root, scans, gt)
+    return [len(s) for s in scans]
+
+
+def cli_argv(name, root, out):
+    """Phase 11's command lines of plo_tpu_torch.cli (plo_tpu.cli takes the
+    same): F1 the KITTI-density drill of tests/test_kitti_density.py (its
+    JSON config written to <root>/cfg.json, the layout under `root`) with
+    artifacts and a checkpoint every 2 frames; "F2 first" its first 2
+    frames, checkpointed; "F2 resume" the last 2 from that checkpoint
+    (<root>/f2/ckpt.npz); F3 the CLI's own synthetic sequence at its
+    defaults."""
+    if name == "F3":
+        return ["--dataset", "synthetic", "--frames", str(CLI_FRAMES), "--eval-gt",
+                "--output", out]
+    cfg = os.path.join(root, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({
+            "scan_registration": {
+                "compute_normal_method": {"format": "pointcloud", "method": "pca"},
+                "presample_method": {"method": "geometric_features"},
+                "sample_method": {"method": "random", "random": {"max_points": ICP_QUERIES}},
+            },
+            "laser_odometry": {
+                "matching_method": {"method": "plane_ICP"},
+                "solve_method": {"method": "LS", "iterations": 30},
+                "motion_prior": True,
+            },
+        }, f)
+    base = ["--config", cfg, "--dataset", "kitti", "--kitti-root", root, "--seq", "00",
+            "--capacity", str(CAPACITY), "--azimuth-resolution", str(360.0 / KITTI_AZIMUTH_STEPS),
+            "--output", out, "--eval-gt"]
+    if name == "F1":
+        return base + ["--frames", str(KITTI_FRAMES), "--save-artifacts",
+                       "--checkpoint-every", str(CKPT_EVERY)]
+    if name == "F2 first":
+        return base + ["--frames", str(CKPT_EVERY), "--checkpoint-every", str(CKPT_EVERY)]
+    if name == "F2 resume":
+        return base + ["--resume", os.path.join(root, "f2", "ckpt.npz"), "--start",
+                       str(CKPT_EVERY), "--frames", str(KITTI_FRAMES - CKPT_EVERY)]
+    raise ValueError(name)
+
+
+def _cli_run(name, argv):
+    """One in-process run of plo_tpu_torch.cli.main(argv) on the card, with
+    every launch count set to 0 just before and read just after. Echoes the
+    CLI's stdout lines prefixed with `name`. Returns (launches, the eval JSON
+    or None, the truncation warnings, seconds)."""
+    import contextlib
+    import io
+    import warnings
+    import torch
+    from plo_tpu_torch import cli
+    from plo_tpu_torch.ops import cuda_nn
+    torch.cuda.synchronize()
+    cuda_nn.reset_launches()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t
+    launches = dict(cuda_nn.LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  {name}: {line}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{name}: the CLI returned {rc}")
+    evals = [json.loads(line) for line in lines if line.startswith("{")]
+    truncated = [str(w.message) for w in caught if "exceeds capacity" in str(w.message)]
+    return launches, (evals[-1] if evals else None), truncated, seconds
+
+
+def _table(path, columns):
+    """The rows of a whitespace-separated text file, each of `columns`
+    values."""
+    import numpy as np
+    with open(path) as f:
+        rows = [line.split() for line in f.read().splitlines()]
+    if not rows or any(len(r) != columns for r in rows):
+        raise AssertionError(f"{path}: not rows of {columns} columns")
+    return np.array(rows, dtype=np.float64)
+
+
+def _iterations(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line)["iterations"] for line in f]
+
+
+class _SaverClock:
+    """Wraps the saver's writers so the seconds they take are summed."""
+
+    def __init__(self):
+        from plo_tpu_torch.utils import saver
+        self.saver, self.seconds, self.saved = saver, 0.0, {}
+        for name in ("save_point_cloud_txt", "save_normal_markers_obj", "save_pose_tum",
+                     "save_matched_points"):
+            self.saved[name] = getattr(saver, name)
+            setattr(saver, name, self._timed(self.saved[name]))
+
+    def _timed(self, fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t
+        return timed
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.saver, name, fn)
+
+
+def phase_cli(dev):
+    """Phase 11 (see the module docstring). Returns {path: launch counts}."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch import native
+    from plo_tpu_torch.io import synthetic
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.utils import DeviceTrace
+
+    zero = {"nearest": 0, "projected_argmin": 0, "cylinder_stats": 0, "fps_ranks": 0}
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plo_cli_")
+    out = {}
+    try:
+        counts = kitti_drill(synthetic, root, workers=8)
+        print(f"F1 sequence: {KITTI_FRAMES} scans of {counts} points written in the KITTI "
+              f"layout in {time.perf_counter() - t0:.1f} s", flush=True)
+        if min(counts) <= KITTI_MIN_POINTS or max(counts) > CAPACITY:
+            raise AssertionError(f"F1: scans of {counts} points, not KITTI-class within "
+                                 f"{CAPACITY}")
+        vdir = os.path.join(root, "sequences", "00", "velodyne")
+        paths = [os.path.join(vdir, f) for f in sorted(os.listdir(vdir))]
+        native.library()
+        t = time.perf_counter()
+        pf = native.ScanPrefetcher(paths, CAPACITY)
+        read = [n for _, n in pf]
+        pf.close()
+        print(f"prefetcher: {1e3 * (time.perf_counter() - t) / len(paths):.2f} ms a scan "
+              f"({len(paths)} .bin files of {read} points, read and padded to {CAPACITY})",
+              flush=True)
+
+        # F1: the KITTI-density drill with artifacts and checkpoints.
+        f1 = os.path.join(root, "f1")
+        clock = _SaverClock()
+        try:
+            launches, ev, truncated, secs = _cli_run("F1", cli_argv("F1", root, f1))
+        finally:
+            clock.restore()
+        it = _iterations(f1)
+        artifacts = [os.path.join(d, f) for d, _, fs in os.walk(f1) for f in fs
+                     if not f.endswith((".npz", ".jsonl")) and f not in
+                     ("trajectory_tum.txt", "odometry_times.txt")]
+        size = sum(os.path.getsize(p) for p in artifacts)
+        print(f"F1: {secs:.1f} s, eval {json.dumps(ev)} (plo_tpu's ATE on the CPU: "
+              f"{JAX_F['F1']:.4f} m), ICP iterations {it}, launches {launches}; artifacts "
+              f"{len(artifacts)} files, {size / 2**20:.1f} MiB, written in "
+              f"{clock.seconds:.2f} s", flush=True)
+        out["F1"] = launches
+        if truncated:
+            raise AssertionError(f"F1: truncation: {truncated}")
+        if launches != {**zero, "nearest": sum(it[1:])}:
+            raise AssertionError(f"F1: launches {launches}, ICP iterations {it}")
+        for rel, cols in (("pcl_cloud/000000.txt", 8), ("imls_results.txt", 8),
+                          ("matched_points/f000001_i00.txt", 6), ("iter_poses.txt", 8),
+                          ("trajectory_tum.txt", 8)):
+            _table(os.path.join(f1, rel), cols)
+        with open(os.path.join(f1, "pca_markers", "000000.obj")) as f:
+            obj = f.read().splitlines()
+        if not obj or {line.split()[0] for line in obj} != {"v", "l"}:
+            raise AssertionError("F1: pca_markers/000000.obj holds no OBJ v/l records")
+        f1_tum = _table(os.path.join(f1, "trajectory_tum.txt"), 8)
+        if len(f1_tum) != KITTI_FRAMES or not np.isfinite(f1_tum).all():
+            raise AssertionError(f"F1: trajectory of {len(f1_tum)} rows, or not finite")
+        if not ev["ate_m"] < KITTI_ATE_BOUND_M:
+            raise AssertionError(f"F1: ATE {ev['ate_m']} m >= {KITTI_ATE_BOUND_M} m")
+
+        # F2: the first 2 frames checkpointed, the last 2 resumed.
+        f2 = os.path.join(root, "f2")
+        l_first, _, _, s_first = _cli_run("F2 first", cli_argv("F2 first", root, f2))
+        f2r = os.path.join(root, "f2r")
+        l_resume, _, _, s_resume = _cli_run("F2 resume", cli_argv("F2 resume", root, f2r))
+        resumed = _table(os.path.join(f2r, "trajectory_tum.txt"), 8)
+        gap = float(np.linalg.norm(resumed[:, 1:4] - f1_tum[CKPT_EVERY:, 1:4], axis=1).max())
+        it2 = _iterations(f2)[1:] + _iterations(f2r)
+        out["F2"] = {k: l_first[k] + l_resume[k] for k in zero}
+        print(f"F2: {s_first:.1f} s + {s_resume:.1f} s; the resumed positions within {gap:.3g} m "
+              f"of F1's frames {CKPT_EVERY}-{KITTI_FRAMES - 1}; ICP iterations {it2}, "
+              f"launches {out['F2']}", flush=True)
+        if not (len(resumed) == KITTI_FRAMES - CKPT_EVERY and gap < RESUME_GAP_M):
+            raise AssertionError(f"F2: {len(resumed)} resumed frames, {gap} m from F1's")
+        if out["F2"] != {**zero, "nearest": sum(it2)}:
+            raise AssertionError(f"F2: launches {out['F2']}, ICP iterations {it2}")
+
+        # F3: the CLI's own defaults on its synthetic sequence.
+        f3 = os.path.join(root, "f3")
+        launches, ev, _, secs = _cli_run("F3", cli_argv("F3", root, f3))
+        tum = _table(os.path.join(f3, "trajectory_tum.txt"), 8)
+        gated = JAX_F["F3"] < JAX_ATE_GATE_M
+        print(f"F3: {secs:.1f} s, eval {json.dumps(ev)} (plo_tpu's ATE on the CPU: "
+              f"{JAX_F['F3']:.4f} m; {'bound ' + str(ATE_BOUND_M) + ' m' if gated else 'capability only'}), "
+              f"ICP iterations {_iterations(f3)}, launches {launches}", flush=True)
+        out["F3"] = launches
+        if launches != {**zero, "cylinder_stats": CLI_FRAMES - 1, "fps_ranks": CLI_FRAMES - 1}:
+            raise AssertionError(f"F3: launches {launches}")
+        if len(tum) != CLI_FRAMES or not np.isfinite(tum).all():
+            raise AssertionError(f"F3: trajectory of {len(tum)} rows, or not finite")
+        if gated and not ev["ate_m"] < ATE_BOUND_M:
+            raise AssertionError(f"F3: ATE {ev['ate_m']} m >= {ATE_BOUND_M} m")
+        with open(os.path.join(f3, "metrics.jsonl")) as f:
+            corr = [json.loads(line)["correspondences"] for line in f]
+        if not gated and min(corr[1:]) <= 0:
+            raise AssertionError(f"F3: an ICP frame found no correspondence: {corr}")
+
+        # A DeviceTrace of one F1 frame holds the nearest kernel's device event.
+        sensor = cfgmod.SensorConfig(n_scans=N_SCANS, azimuth_resolution=360.0 / KITTI_AZIMUTH_STEPS)
+        odo = Odometry(cfgmod.load(os.path.join(root, "cfg.json"), sensor=sensor),
+                       capacity=CAPACITY, seed=0, device=dev)
+        scans = [native.load_bin_padded(p, CAPACITY) for p in paths]
+        odo.process_scan(scans[0][0][:scans[0][1]])
+        for attempt, (scan, n) in enumerate(scans[1:3]):
+            trace_dir = os.path.join(root, f"trace{attempt}")
+            with DeviceTrace(trace_dir) as tr:
+                odo.process_scan(scan[:n])
+            with open(tr.path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            hits = [e for e in kernels if "nearest_kernel" in e.get("name", "")]
+            print(f"DeviceTrace: {tr.path} ({os.path.getsize(tr.path) / 2**20:.1f} MiB), "
+                  f"{len(kernels)} kernel events, {len(hits)} of nearest_kernel "
+                  f"({sum(e.get('dur', 0) for e in hits) / 1e3:.3f} ms)", flush=True)
+            if hits:
+                break
+        else:
+            raise AssertionError("DeviceTrace: no nearest_kernel device event in two traces")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of plo_tpu_torch on one CUDA card.")
     ap.add_argument("--baseline", default=None, metavar="DIR",
@@ -1343,6 +1630,7 @@ def main(argv=None):
     phase_matrix(dev)
     by_path.update(phase_slice_d(dev, scans, gt))
     by_path.update(phase_slice_e(dev, scans, gt))
+    by_path.update(phase_cli(dev))
     main_path = {"nearest": "B1", "projected_argmin": "B2",
                  "cylinder_stats": "default", "fps_ranks": "default"}
     for rec in records:

@@ -21,13 +21,18 @@ What the port covers, in `Odometry.process_scan` and `process_scans`:
     pose; optional per-point motion compensation (undistort);
   * windowed bundle adjustment (laser_odometry.ba, window mode), per frame
     and batched (parallel/ba.py), and loop closure on a finished trajectory
-    (models/loopclosure.py: close_loops).
-So the default `Config()`, bench.py's config, every shipped config, map
-mode and the 36 combinations of the method matrix (method_matrix.py) run.
-The four TPU kernels of plo_tpu (nearest, projected_argmin,
-cylinder_stats, fps_ranks) are CUDA C++ kernels for sm_90a in csrc/, bound
-with ctypes in ops/cuda_nn.py. The saver's artifacts raise
-NotImplementedError.
+    (models/loopclosure.py: close_loops);
+  * the saver's artifact mode (the per-iteration matched pairs and poses,
+    utils/saver.py), checkpoint and resume (utils/checkpoint.py);
+  * the command-line runner (`python -m plo_tpu_torch.cli`) over the
+    synthetic simulator or a KITTI sequence read through the native
+    prefetcher (io/kitti.py, native/), with ATE, RPE and KITTI drift
+    (utils/evaluate.py) and torch.profiler traces (utils/profiling.py).
+So every option of the single-device Config runs: the default `Config()`,
+bench.py's config, every shipped config, map mode and the 36 combinations
+of the method matrix (method_matrix.py). The four TPU kernels of plo_tpu
+(nearest, projected_argmin, cylinder_stats, fps_ranks) are CUDA C++
+kernels for sm_90a in csrc/, bound with ctypes in ops/cuda_nn.py.
 
 Entry points take an explicit `device`. `None` means the CUDA card and raises
 where there is none; the CPU runs only when a caller asks for it

@@ -38,6 +38,15 @@ class PointCloud:
         return PointCloud(**{f.name: getattr(self, f.name)[:n]
                              for f in dataclasses.fields(self)})
 
+    def bounding_box(self):
+        """Masked axis-aligned bounding box (computeBoundingBox,
+        common.h:104-122): (min [3], max [3]) over the valid points, +inf and
+        -inf on an empty cloud."""
+        v = self.valid[:, None]
+        mn = torch.where(v, self.xyz, torch.inf).amin(0)
+        mx = torch.where(v, self.xyz, -torch.inf).amax(0)
+        return mn, mx
+
     def concat(self, other: "PointCloud") -> "PointCloud":
         return PointCloud(**{f.name: torch.cat([getattr(self, f.name),
                                                 getattr(other, f.name)])

@@ -166,6 +166,41 @@ def render_scan(
     return np.concatenate([pts, refl], axis=1).astype(np.float32)
 
 
+def write_kitti_layout(root: str, scans: List[np.ndarray], poses_velo: np.ndarray,
+                       seq: str = "00", tr: Optional[np.ndarray] = None) -> np.ndarray:
+    """Write scans and ground truth in the KITTI odometry benchmark layout
+    (sequences/<seq>/velodyne/NNNNNN.bin, poses/<seq>.txt, calib.txt), so the
+    `--dataset kitti` path of the CLI runs end to end without the dataset.
+
+    The ground-truth poses are written in the cam0 frame (T_cam = Tr T_velo
+    Tr^-1) with a non-trivial velodyne->cam0 extrinsic by default, so the
+    reader's calib conjugation (io/kitti.py: poses_to_velodyne_frame) is
+    exercised: the evaluation lines up only if the round trip is right.
+    Returns the Tr used."""
+    import os
+
+    if tr is None:
+        # A KITTI-like axis permutation (velodyne x forward, z up -> cam0 z
+        # forward, y down) and a small lever arm.
+        tr = np.array([[0.0, -1.0, 0.0, -0.02],
+                       [0.0, 0.0, -1.0, -0.08],
+                       [1.0, 0.0, 0.0, 0.27],
+                       [0.0, 0.0, 0.0, 1.0]])
+    vdir = os.path.join(root, "sequences", seq, "velodyne")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for i, s in enumerate(scans):
+        s.astype(np.float32).tofile(os.path.join(vdir, f"{i:06d}.bin"))
+    poses_cam = np.einsum("ij,njk,kl->nil", tr, poses_velo, np.linalg.inv(tr))
+    with open(os.path.join(root, "poses", f"{seq}.txt"), "w") as f:
+        for p in poses_cam:
+            f.write(" ".join(f"{v:.9e}" for v in p[:3, :4].reshape(-1)) + "\n")
+    with open(os.path.join(root, "sequences", seq, "calib.txt"), "w") as f:
+        f.write("P0: " + " ".join(["0"] * 12) + "\n")
+        f.write("Tr: " + " ".join(f"{v:.9e}" for v in tr[:3, :4].reshape(-1)) + "\n")
+    return tr
+
+
 def rectangle_loop_profile(n_straight: int = 20, n_turn: int = 24,
                            speed: float = 1.2, turn_speed_factor: float = 0.7,
                            laps: int = 1) -> Tuple[np.ndarray, np.ndarray]:

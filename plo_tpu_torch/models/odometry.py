@@ -34,6 +34,7 @@ for knn's tie check (ops/neighbors.py). The map chain adds none.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
@@ -55,6 +56,7 @@ from plo_tpu_torch.solvers.gnc import ALGORITHMS as TEASER_ALGORITHMS, solve_gnc
 from plo_tpu_torch.solvers.icp_umeyama import solve_icp_point_to_point
 from plo_tpu_torch.solvers.ls import solve_ls_trimmed
 from plo_tpu_torch.solvers.ransac import solve_ransac
+from plo_tpu_torch.utils import saver
 
 # Iteration caps of the ICP and Teaser solvers (plo_tpu/models/odometry.py:
 # 113, 118): a fused while_loop there unrolls the solver body.
@@ -136,8 +138,6 @@ def _check_supported(cfg: Config) -> None:
             raise ValueError("map.search='grid_hash' requires euclidean IMLS "
                              "(freeze-mode search); projected-distance mode "
                              "uses the dense engine")
-    if cfg.saver.enabled:
-        raise NotImplementedError("saver artifacts is not ported yet")
     if lo.matching_method.method not in ("IMLS", "plane_ICP"):
         raise ValueError(f"invalid matching method {lo.matching_method.method!r}")
     if sv.method not in ("RANSAC", "Ceres", "LS", "ICP", "Teaser"):
@@ -228,6 +228,46 @@ def _moved(flat: PointCloud, pose: torch.Tensor, transform_normal: bool) -> Poin
         normal=geo.rotate_vectors(pose, flat.normal) if transform_normal else flat.normal)
 
 
+def _solve_step(cfg: Config, src_xyz: torch.Tensor, res, n_corr: torch.Tensor, draws,
+                i: int, probs: torch.Tensor):
+    """Solve and test one ICP iteration's correspondences `res` of the moved
+    source `src_xyz` (iteration i, 0-based, drawing from `draws`): returns
+    (delta, the identity where there are too few correspondences or the
+    solve failed; converged; done, the loop's break condition; the DRPM
+    probabilities, `probs` unchanged for solvers without a DRPM stage), all
+    on the device."""
+    lo = cfg.laser_odometry
+    sv = lo.solve_method
+    enough = n_corr >= lo.matching_method.correspond_number
+    if sv.method == "RANSAC":
+        delta, ok, probs = solve_ransac(
+            src_xyz, res.y, res.normal, res.valid,
+            draws.ransac(i, n_corr, sv.ransac.max_iterations), sv.ransac)
+    elif sv.method == "Ceres":
+        delta, ok = solve_gauss_newton(src_xyz, res.y, res.normal, res.valid,
+                                       sv.ceres.max_iterations)
+    elif sv.method == "LS":
+        delta, ok = solve_ls_trimmed(src_xyz, res.y, res.normal, res.valid, sv.ls.threshold)
+    elif sv.method == "ICP":
+        delta, ok = solve_icp_point_to_point(src_xyz, res.y, res.valid,
+                                             min(sv.icp.max_iterations, ICP_SOLVER_CAP))
+    else:
+        t = sv.teaser
+        pairs = draws.teaser(i, src_xyz.shape[0], 1024) if t.estimate_scaling else None
+        delta, ok = solve_gnc_tls(
+            src_xyz, res.y, res.valid, t.noise_bound, t.rotation_gnc_factor,
+            min(t.rotation_max_iterations, TEASER_CAP), use_max_clique=t.use_max_clique,
+            kcore_min_fraction=t.kcore_heuristic_threshold,
+            estimate_scaling=t.estimate_scaling, pairs=pairs,
+            algorithm=t.rotation_estimation_algorithm,
+            cost_threshold=t.rotation_cost_threshold)
+    delta = torch.where(enough & ok, delta, torch.eye(4, dtype=delta.dtype, device=delta.device))
+    converged = ((torch.linalg.norm(delta[:3, 3]) < sv.delta_dist_threshold)
+                 & (geo.rotation_angle(delta[:3, :3]) < sv.delta_angle_threshold))
+    done = ~(enough & ok) | converged  # break conditions (:571-576,611-616,643-646)
+    return delta, converged, done, probs
+
+
 def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose,
              device: torch.device, map_mode: bool):
     """The ICP loop of plo_tpu.models.odometry._make_icp_step: the sampled
@@ -281,7 +321,6 @@ def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose
     n_corr = torch.zeros((), dtype=torch.int64, device=device)
     converged = torch.zeros((), dtype=torch.bool, device=device)
     probs = torch.ones(6, dtype=torch.float32, device=device)
-    eye = torch.eye(4, dtype=torch.float32, device=device)
     while i < sv.iterations:
         src = _moved(flat, rpose, transform_normal)
         src_xyz = src.xyz
@@ -294,34 +333,7 @@ def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose
         else:
             res = match_once(cfg, src, target, tgt_normal, tgt_normal_ok)
         n_corr = res.valid.sum()
-        enough = n_corr >= lo.matching_method.correspond_number
-        if sv.method == "RANSAC":
-            delta, ok, probs = solve_ransac(
-                src_xyz, res.y, res.normal, res.valid,
-                draws.ransac(i, n_corr, sv.ransac.max_iterations), sv.ransac)
-        elif sv.method == "Ceres":
-            delta, ok = solve_gauss_newton(src_xyz, res.y, res.normal, res.valid,
-                                           sv.ceres.max_iterations)
-        elif sv.method == "LS":
-            delta, ok = solve_ls_trimmed(src_xyz, res.y, res.normal, res.valid,
-                                         sv.ls.threshold)
-        elif sv.method == "ICP":
-            delta, ok = solve_icp_point_to_point(src_xyz, res.y, res.valid,
-                                                 min(sv.icp.max_iterations, ICP_SOLVER_CAP))
-        else:
-            t = sv.teaser
-            pairs = draws.teaser(i, src_xyz.shape[0], 1024) if t.estimate_scaling else None
-            delta, ok = solve_gnc_tls(
-                src_xyz, res.y, res.valid, t.noise_bound, t.rotation_gnc_factor,
-                min(t.rotation_max_iterations, TEASER_CAP), use_max_clique=t.use_max_clique,
-                kcore_min_fraction=t.kcore_heuristic_threshold,
-                estimate_scaling=t.estimate_scaling, pairs=pairs,
-                algorithm=t.rotation_estimation_algorithm,
-                cost_threshold=t.rotation_cost_threshold)
-        delta = torch.where(enough & ok, delta, eye)
-        converged = ((torch.linalg.norm(delta[:3, 3]) < sv.delta_dist_threshold)
-                     & (geo.rotation_angle(delta[:3, :3]) < sv.delta_angle_threshold))
-        done = ~(enough & ok) | converged  # break conditions (:571-576,611-616,643-646)
+        delta, converged, done, probs = _solve_step(cfg, src_xyz, res, n_corr, draws, i, probs)
         rpose = delta @ rpose
         i += 1
         if hybrid:
@@ -335,6 +347,46 @@ def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose
         else:
             done_h = bool(done)  # the one host sync of the iteration
         if done_h:
+            break
+    return rpose, i, n_corr, converged, probs
+
+
+def icp_loop_with_artifacts(cfg: Config, flat: PointCloud, target: PointCloud, draws,
+                            init_pose, device: torch.device, map_mode: bool, out_dir: str,
+                            frame: int):
+    """The ICP loop of the saver's artifact mode (plo_tpu's
+    _icp_loop_with_artifacts and _make_icp_iteration), dumping the
+    reference's per-iteration trail (laser_odometry.cpp:621-625) into
+    `out_dir`: matched_points/f<frame>_i<iteration>.txt ("sx sy sz rx ry rz"
+    rows of the matched pairs) and iter_poses.txt (a TUM line a iteration,
+    stamped <frame>.<iteration>). Every iteration makes a full match, as
+    plo_tpu's does: euclidean IMLS neither freezes nor refreshes by motion
+    here, so on IMLS its poses can differ from icp_loop's; on plane-ICP the
+    two loops are the same. Returns what icp_loop returns."""
+    lo = cfg.laser_odometry
+    cap = _flat_query_cap(cfg)
+    if cap is not None and flat.capacity > cap:
+        flat = flat.slice(cap)
+    tgt_normal, tgt_normal_ok = prepare_target(cfg, target, map_mode)
+    transform_normal = lo.transform_normal or map_mode
+    rpose = (torch.eye(4, dtype=torch.float32, device=device)
+             if init_pose is None else init_pose)
+    n_corr = torch.zeros((), dtype=torch.int64, device=device)
+    converged = torch.zeros((), dtype=torch.bool, device=device)
+    probs = torch.ones(6, dtype=torch.float32, device=device)
+    i = 0
+    while i < lo.solve_method.iterations:
+        src = _moved(flat, rpose, transform_normal)
+        res = match_once(cfg, src, target, tgt_normal, tgt_normal_ok)
+        n_corr = res.valid.sum()
+        delta, converged, done, probs = _solve_step(cfg, src.xyz, res, n_corr, draws, i, probs)
+        rpose = delta @ rpose
+        saver.save_matched_points(src.xyz, res.y, res.valid, os.path.join(
+            out_dir, "matched_points", f"f{frame:06d}_i{i:02d}.txt"))
+        saver.save_pose_tum(rpose.cpu().numpy().astype(np.float64),
+                            os.path.join(out_dir, "iter_poses.txt"), f"{frame}.{i:02d}")
+        i += 1
+        if bool(done):
             break
     return rpose, i, n_corr, converged, probs
 
@@ -435,6 +487,11 @@ class Odometry:
         self._ba = cfg.laser_odometry.ba.enabled
         self._ba_clouds: Deque[PointCloud] = deque(maxlen=cfg.laser_odometry.ba.window)
         self._ba_corr: Dict[int, tuple] = {}
+        # Artifact mode (saver.enabled with an output_dir): the ICP loop
+        # dumps each iteration's matched pairs and pose there, and
+        # process_scans runs frame by frame.
+        self._artifact_dir = (cfg.saver.output_dir
+                              if cfg.saver.enabled and cfg.saver.output_dir else None)
         # The front-end keeps the first `capacity` points of a larger scan;
         # the dropped points are counted here and warned about once.
         self.truncated_points = 0
@@ -483,10 +540,16 @@ class Odometry:
         return _map_fields(lambda *xs: torch.stack(xs), *(pad + clouds))
 
     def _icp(self, flat: PointCloud, target: PointCloud, draws, init_pose):
-        """icp_loop on this run's config, device and target mode, without
-        the convergence flag."""
-        rpose, i, n_corr, _, probs = icp_loop(self.cfg, flat, target, draws, init_pose,
-                                              self.device, self._map_mode)
+        """icp_loop on this run's config, device and target mode (in
+        artifact mode icp_loop_with_artifacts, for the frame being
+        processed), without the convergence flag."""
+        if self._artifact_dir is not None:
+            rpose, i, n_corr, _, probs = icp_loop_with_artifacts(
+                self.cfg, flat, target, draws, init_pose, self.device, self._map_mode,
+                self._artifact_dir, self.frame_count)
+        else:
+            rpose, i, n_corr, _, probs = icp_loop(self.cfg, flat, target, draws, init_pose,
+                                                  self.device, self._map_mode)
         return rpose, i, n_corr, probs
 
     def _advance(self, fe: FrontEndOutput, target: Optional[PointCloud], draws) -> torch.Tensor:
@@ -672,15 +735,17 @@ class Odometry:
             self._drain()
 
     def process_scans(self, scans, batch: int = 8, draws: Optional[Sequence] = None):
-        """Process a sequence of raw scans: frame 0 and a last batch shorter
-        than `batch` frame by frame, the rest in steps of `batch` frames.
+        """Process a sequence of raw scans: frame 0, a last batch shorter
+        than `batch` and every frame in artifact mode frame by frame, the
+        rest in steps of `batch` frames.
         `draws` gives each scan's draws object (None entries: the run's
         own). In async_mode, call finalize() (or poses()) after."""
         scans = list(scans)
         draws = [None] * len(scans) if draws is None else list(draws)
         i = 0
         while i < len(scans):
-            if self.frame_count == 0 or len(scans) - i < batch:
+            if (self.frame_count == 0 or len(scans) - i < batch
+                    or self._artifact_dir is not None):
                 self.process_scan(scans[i], draws[i])
                 i += 1
                 continue

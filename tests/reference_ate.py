@@ -23,6 +23,13 @@ compensation does not lower plo_tpu's ATE.
 E1-E5 are phase 10's paths (windowed BA, loop closure, the planetary
 world): each prints the numbers its phase holds the port to (slice_e).
 
+    JAX_PLATFORMS=cpu python tests/reference_ate.py F1 F3
+
+F1 and F3 are phase 11's command lines (chip_smoke.cli_argv) through
+plo_tpu's own CLI with --platform cpu: F1 the KITTI-density drill at full
+width (its layout written by chip_smoke.kitti_drill), F3 the CLI's
+synthetic defaults; each prints the CLI's evaluation line (slice_f).
+
 Prints one JSON line per path (ATE in m, ICP iterations, correspondences).
 """
 import dataclasses
@@ -48,6 +55,8 @@ from plo_tpu.utils import evaluate  # noqa: E402
 
 def main(names):
     cfgs = {**chip_smoke.slice_c_configs(cfgmod, REPO), **chip_smoke.slice_d_configs(cfgmod, REPO)}
+    if any(n.startswith("F") for n in names):
+        return slice_f([n for n in names if n.startswith("F")])
     if any(n.startswith("E") for n in names):
         return slice_e([n for n in names if n.startswith("E")])
     hdl, vlp, swept = None, None, None
@@ -184,6 +193,30 @@ def slice_e(names):
             raise ValueError(name)
         print(json.dumps(dict(path=name, **out, seconds=round(time.perf_counter() - t0, 1))),
               flush=True)
+
+
+def slice_f(names):
+    """plo_tpu's CLI on chip_smoke.py's phase 11 command lines (F1, F3),
+    in a temporary directory; one JSON line each with the CLI's evaluation."""
+    import contextlib
+    import io
+    import tempfile
+    from plo_tpu import cli
+    from plo_tpu_torch.io import synthetic
+    for name in names:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            if name == "F1":
+                chip_smoke.kitti_drill(synthetic, root, workers=4)
+            argv = chip_smoke.cli_argv(name, root, os.path.join(root, "out"))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + ["--platform", "cpu"])
+            ev = json.loads([ln for ln in buf.getvalue().splitlines() if ln.startswith("{")][-1])
+            with open(os.path.join(root, "out", "metrics.jsonl")) as f:
+                iters = [json.loads(ln)["iterations"] for ln in f]
+        print(json.dumps(dict(path=name, rc=rc, **ev, iterations=iters,
+                              seconds=round(time.perf_counter() - t0, 1))), flush=True)
 
 
 if __name__ == "__main__":

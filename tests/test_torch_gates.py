@@ -31,6 +31,17 @@ R = 0.1
 F32_R = np.float32(R)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_cpu_threads():
+    """Two torch threads for the module: the suite runs on 6 pytest workers
+    side by side (tests/test_torch_headline.py says what a full pool a
+    worker costs)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_f32_square_differs_from_the_double_square_at_0_1():
     assert cuda_nn.f32_square(R) == float(np.float32(0.0100000007))
     assert float(np.float32(R * R)) < cuda_nn.f32_square(R)

@@ -834,3 +834,61 @@ def test_gpu_record_corr_with_nearest_matches_the_cpu(cuda):
     assert torch.equal(out[3], ref[3]) and torch.equal(out[0], ref[0])
     assert torch.equal(out[2], ref[2])
     torch.testing.assert_close(out[1], ref[1], rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_cli_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """python -m plo_tpu_torch.cli on the card against --platform cpu:
+    tests/test_cli.py's light config (plane-ICP + LS), 3 synthetic frames at
+    32 x 450, with artifacts, a checkpoint and the evaluation. Both runs draw
+    from one CPU generator seeded alike (the card's generator makes other
+    numbers), so they sample the same points: poses within 2 mm / 1e-4 rad
+    and the same output file set."""
+    import json
+    import os
+    from plo_tpu_torch import cli
+    from plo_tpu_torch.models import odometry
+
+    class CpuDraws(odometry.GeneratorDraws):
+        def __init__(self, generator, device):
+            super().__init__(torch.Generator().manual_seed(generator.initial_seed()),
+                             torch.device("cpu"))
+            self.target = device
+
+        def frontend(self, n, p):
+            return [t.to(self.target) for t in super().frontend(n, p)]
+
+        def ransac(self, iteration, n_valid, m):
+            return super().ransac(iteration, n_valid.cpu(), m).to(self.target)
+
+    monkeypatch.setattr(odometry, "GeneratorDraws", CpuDraws)
+    cfg = tmp_path / "light.json"
+    cfg.write_text(json.dumps({
+        "scan_registration": {
+            "compute_normal_method": {"format": "pointcloud", "method": "pca"},
+            "presample_method": {"method": "geometric_features"},
+            "sample_method": {"method": "random", "random": {"max_points": 1500}},
+        },
+        "laser_odometry": {
+            "matching_method": {"method": "plane_ICP"},
+            "solve_method": {"method": "LS", "iterations": 20},
+        },
+    }))
+    common = ["--dataset", "synthetic", "--frames", "3", "--capacity", "16384",
+              "--scan-lines", "32", "--azimuth-steps", "450", "--azimuth-resolution", "0.8",
+              "--config", str(cfg), "--eval-gt", "--save-artifacts", "--checkpoint-every", "2"]
+    cuda_nn.reset_launches()
+    assert cli.main(common + ["--output", str(tmp_path / "gpu")]) == 0
+    assert cuda_nn.LAUNCHES["nearest"] > 0
+    assert cli.main(common + ["--output", str(tmp_path / "cpu"), "--platform", "cpu"]) == 0
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs)
+
+    assert files(tmp_path / "gpu") == files(tmp_path / "cpu")
+    gpu, cpu = (np.loadtxt(tmp_path / d / "trajectory_tum.txt") for d in ("gpu", "cpu"))
+    assert gpu.shape == cpu.shape == (3, 8)
+    np.testing.assert_allclose(gpu[:, 1:4], cpu[:, 1:4], rtol=0, atol=2e-3)
+    # Quaternions (q and -q are one rotation) within 1e-4 rad: |dq| ~ angle / 2.
+    dq = np.minimum(np.abs(gpu[:, 4:] - cpu[:, 4:]), np.abs(gpu[:, 4:] + cpu[:, 4:]))
+    assert dq.max() < 5e-5, dq

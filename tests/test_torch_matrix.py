@@ -33,6 +33,17 @@ from plo_tpu_torch.models.odometry import Odometry
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_cpu_threads():
+    """Two torch threads for the module: the suite runs on 6 pytest workers
+    side by side (tests/test_torch_headline.py says what a full pool a
+    worker costs)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tool_config(presample, sampler, match, solver):
     """tools/method_matrix.py's mkcfg, on plo_tpu's config classes."""
     c = jax_cfg

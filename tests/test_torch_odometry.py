@@ -34,12 +34,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module", autouse=True)
 def torch_cpu_warm():
-    """One parallel sqrt on every torch CPU thread before any comparison. In a
-    process where JAX has run, the first vectorized sqrt a fresh torch worker
-    thread computes can come back far off the last bit on that thread's rows
-    (seen with torch 2.13+cpu); later calls are within an ulp. A defect of the
-    CPU math library, not of the code under test."""
+    """Two torch threads for the module (the suite runs on 6 pytest workers
+    side by side; tests/test_torch_headline.py says what a full pool a worker
+    costs), then one parallel sqrt on every torch CPU thread before any
+    comparison. In a process where JAX has run, the first vectorized sqrt a
+    fresh torch worker thread computes can come back far off the last bit on
+    that thread's rows (seen with torch 2.13+cpu); later calls are within an
+    ulp. A defect of the CPU math library, not of the code under test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
     torch.sqrt(torch.rand(4096, 512))
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_config():
@@ -152,11 +158,18 @@ def test_odometry_without_a_device_raises_on_a_host_without_cuda(monkeypatch):
         Odometry(port_cfg.Config())
 
 
-def test_unported_options_raise():
-    """The saver's artifacts are the one option the port still refuses
-    (windowed BA runs: tests/test_torch_ba.py)."""
-    with pytest.raises(NotImplementedError, match="saver artifacts"):
-        Odometry(port_cfg.Config(saver=port_cfg.SaverConfig(enabled=True)), device="cpu")
+def test_unported_options_raise(tmp_path, run):
+    """No option of the single-device Config is refused any more: the last
+    one, the saver's artifact mode, constructs and runs a frame on the CPU
+    (its ICP trail: tests/test_torch_artifacts.py)."""
+    scans = run[0]
+    cfg = port_cfg.Config(saver=port_cfg.SaverConfig(enabled=True, output_dir=str(tmp_path)),
+                          sensor=port_cfg.SensorConfig(n_scans=N_SCANS,
+                                                       azimuth_resolution=360.0 / AZ_STEPS))
+    odo = Odometry(cfg, capacity=CAPACITY, seed=0, device="cpu")
+    assert odo._artifact_dir == str(tmp_path)
+    f = odo.process_scan(scans[0])
+    assert f.index == 0 and np.array_equal(f.pose, np.eye(4))
 
 
 _BLOCK_JAX = """

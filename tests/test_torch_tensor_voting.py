@@ -41,6 +41,17 @@ from plo_tpu_torch.ops import tensor_voting as tv
 ROOT_EPS = float(np.sqrt(np.finfo(np.float32).eps))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_cpu_threads():
+    """Two torch threads for the module: the suite runs on 6 pytest workers
+    side by side (tests/test_torch_headline.py says what a full pool a
+    worker costs)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
