@@ -117,6 +117,31 @@ traceback, and a watchdog turns a hang into the same:
      and a DeviceTrace (torch.profiler) of one F1 frame holding a device
      event of nearest_kernel; the prefetcher's read time and the phase's
      seconds printed.
+ 12. multi-device (plo_tpu_torch.parallel), 8 shards on cuda:0, launch
+     counts set to 0 before each run and read after, frame times printed:
+       G1 the sharded map at full width: bench.map_config("dense") (the
+          headline config against a 65,536-point voxel map at 0.3 m) at
+          capacity 57600 on 9 HDL-64 x 900 frames of phase 3's world and
+          motion, per frame and batched (frame 0, then two batches of 4),
+          against the single-device map run: positions within 0.01 m, ATE
+          gap below 5 mm, ATE below 0.1 m, no shard above 2/8 of the map,
+          batched poses equal to per frame, no kernel launch (the search is
+          knn);
+       G2 the sharded ICP step with 8 shards and on a 2 x 4 mesh, B1 on
+          phase 3's frames 2-5 (each frame's flat against the previous
+          filtered cloud), against the single-device icp_loop: rPose within
+          1e-4, correspondence counts equal, nearest launched 8 times an
+          ICP iteration, each launch bit-equal to nearest_plain on its
+          shard's slice;
+       G3 make_distributed_refine with 8 shards against refine_window on
+          E3's BA window (B1 + BA, window 4, HDL-64 x 900): within 1e-4;
+          both refines timed;
+       G4 G1's per-frame run saved after its 6th frame (save_sharded),
+          loaded on 8 and on 4 shards and run to its 9th: positions within
+          1e-5 m and 5e-3 m of the uninterrupted run;
+       G5 G1's per-frame run with the mesh joined to a 1-rank NCCL group on
+          a localhost TCP port: poses equal to G1's; a CUDA tensor on a gloo
+          group raises;
 With --baseline DIR (an older checkout, e.g. `git archive` of a parent
 commit unpacked into a git-ignored directory), each call that phases 2 and
 2b time (MAIN_CALLS) is also made with DIR's function of the same name and
@@ -211,6 +236,12 @@ KITTI_MIN_POINTS = 110_000             # phase 11 F1: KITTI-class density a scan
 CKPT_EVERY = 2                         # phase 11 F1, F2: --checkpoint-every
 RESUME_GAP_M = 1e-4                    # phase 11 F2: resumed positions within this of F1's
 CLI_FRAMES = 5                         # phase 11 F3: the CLI's own synthetic sequence
+SHARDS = 8                             # phase 12: shards on cuda:0 (G1-G5)
+G_FRAMES, G_SAVE_AFTER = 9, 5          # phase 12 G1: frames; G4: saved after this index
+G_BATCH = 4                            # phase 12 G1: frame 0 alone, then two batches of 4
+G_SINGLE_GAP_M, G_ATE_GAP_M = 0.01, 0.005   # G1: tests/test_parallel.py:131-181's bounds
+G_ICP_ATOL, G_BA_ATOL = 1e-4, 1e-4     # G2, G3: tests/test_parallel.py:41-56, :112
+G_RESUME_M, G_ELASTIC_M = 1e-5, 5e-3   # G4: tests/test_map_store.py:48-114's bounds
 
 # Each path's ATE (m) as phase_path measured it, by path name.
 ATES = {}
@@ -1204,6 +1235,8 @@ def phase_slice_e(dev, scans, gt):
     cuda_nn.reset_launches()
     per_frame = Odometry(cfgs["E2"], capacity=BA_CAPACITY, seed=0, device=dev)
     _frames(dev, "E2 per frame", per_frame, e2_scans)
+    _no_launch("E2 per frame", zero)
+    cuda_nn.reset_launches()
     batched = Odometry(cfgs["E2"], capacity=BA_CAPACITY, seed=0, device=dev, async_mode=True)
     _batched(dev, "E2 batched", batched, e2_scans, BA_BATCH)
     out["E2"] = _no_launch("E2", zero)
@@ -1598,6 +1631,274 @@ def phase_cli(dev):
     return out
 
 
+def multidevice_sequence(workers=8):
+    """Phase 12 G1's frames: phase 3's world and motion (make_sequence), for
+    G_FRAMES frames."""
+    from plo_tpu_torch.io import synthetic
+    world = synthetic.SyntheticWorld.corridor(seed=7, n_boxes=140, extent=60.0)
+    return synthetic.synthetic_sequence(G_FRAMES, n_scans=N_SCANS, azimuth_steps=AZIMUTH_STEPS,
+                                        speed=0.5, yaw_rate=0.01, seed=3, world=world,
+                                        workers=workers)
+
+
+def _sharded_frames(dev, name, sodo, scans, save=None):
+    """The scans through sodo.process_scan, each timed up to a synchronize;
+    with save=(after, path), save_sharded after frame `after`. Prints the
+    frame times; returns the poses."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch.utils import checkpoint
+    ms = []
+    for s in scans:
+        t = time.perf_counter()
+        f = sodo.process_scan(s)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t))
+        if save is not None and f.index == save[0]:
+            checkpoint.save_sharded(sodo, save[1])
+    poses = sodo.poses()
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"{name}: non-finite pose")
+    print(f"  {name}: frames {', '.join(f'{m:.1f}' for m in ms)} ms, ICP iterations "
+          f"{[f.iterations for f in sodo.trajectory]}", flush=True)
+    return poses
+
+
+def phase_sharded_map(dev, tmp):
+    """Phase 12 G1 and G4 (see the module docstring). Returns (G1's scans, its
+    config, the per-frame sharded poses, G1's launch counts)."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch import bench
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.parallel import get_mesh
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+    from plo_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    scans, gt = multidevice_sequence()
+    print(f"G1 sequence: {len(scans)} scans generated in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = bench.map_config("dense", N_SCANS, 360.0 / AZIMUTH_STEPS)
+    mesh = get_mesh(SHARDS, device=dev)
+    zero = {k: 0 for k in cuda_nn.LAUNCHES}
+    torch.cuda.synchronize(dev)
+    cuda_nn.reset_launches()
+    single = Odometry(cfg, capacity=MAP_CAPACITY, seed=0, device=dev, transfer="float32")
+    _frames(dev, "G1 single device", single, scans)
+    _no_launch("G1 single device", zero)
+    path = os.path.join(tmp, "g4.npz")
+    cuda_nn.reset_launches()
+    sodo = ShardedMapOdometry(cfg, mesh, capacity=MAP_CAPACITY, seed=0)
+    per_frame = _sharded_frames(dev, "G1 8 shards per frame", sodo, scans, (G_SAVE_AFTER, path))
+    batched = ShardedMapOdometry(cfg, mesh, capacity=MAP_CAPACITY, seed=0, defer_fetch=True)
+    t = time.perf_counter()
+    batched.process_scans(scans, batch=G_BATCH)
+    batched.sync()
+    batch_ms = 1e3 * (time.perf_counter() - t)
+    launches = _no_launch("G1", zero)
+    p1, pb = single.poses(), batched.poses()
+    gap = float(np.linalg.norm(per_frame[:, :3, 3] - p1[:, :3, 3], axis=1).max())
+    ate_s, ate_1 = _ate(per_frame, gt), _ate(p1, gt)
+    total = int(sodo.store.global_cloud().valid.sum())
+    per_device = sodo.map_points_per_device()
+    print(f"G1: batched {batch_ms:.1f} ms for {len(scans)} frames (frame 0, then batches of "
+          f"{G_BATCH}), poses {'equal to' if np.array_equal(pb, per_frame) else 'DIFFER from'} "
+          f"per frame; positions within {gap:.2e} m of the single device, ATE {ate_s:.4f} m "
+          f"sharded, {ate_1:.4f} m single device; map {total} points, at most {per_device} a "
+          f"shard (bound {max(2 * total // SHARDS, 1024)}), "
+          f"single device {int(single._device_map.valid.sum())}; launches {launches}", flush=True)
+    if not np.array_equal(pb, per_frame):
+        raise AssertionError("G1: batched sharded poses differ from per frame")
+    if not (gap < G_SINGLE_GAP_M and abs(ate_s - ate_1) < G_ATE_GAP_M and ate_s < ATE_BOUND_M):
+        raise AssertionError(f"G1: gap {gap} m, ATE {ate_s} against {ate_1} m")
+    if not per_device < max(2 * total // SHARDS, 1024):
+        raise AssertionError(f"G1: a shard holds {per_device} of {total} map points")
+
+    # G4: resume on 8 shards and, elastic, on 4.
+    for n, bound in ((SHARDS, G_RESUME_M), (SHARDS // 2, G_ELASTIC_M)):
+        res = ShardedMapOdometry(cfg, get_mesh(n, device=dev), capacity=MAP_CAPACITY, seed=0)
+        checkpoint.load_sharded(res, path)
+        cuda_nn.reset_launches()
+        resumed = _sharded_frames(dev, f"G4 {n} shards", res, scans[G_SAVE_AFTER + 1:])
+        _no_launch("G4", zero)
+        d = float(np.linalg.norm(resumed[:, :3, 3] - per_frame[G_SAVE_AFTER + 1:, :3, 3],
+                                 axis=1).max())
+        print(f"G4: saved after frame {G_SAVE_AFTER + 1} of {len(scans)}, resumed on {n} shards "
+              f"({res.store.per_shard} rows a shard): positions within {d:.2e} m of the "
+              f"uninterrupted run (bound {bound} m)", flush=True)
+        if not d < bound:
+            raise AssertionError(f"G4: resumed on {n} shards {d} m from the uninterrupted run")
+    return scans, cfg, per_frame, launches
+
+
+def phase_sharded_icp(dev, scans):
+    """Phase 12 G2 (see the module docstring). Returns the launch counts of
+    the 8-shard step."""
+    import numpy as np
+    import torch
+    from plo_tpu_torch.models.odometry import GeneratorDraws, icp_loop
+    from plo_tpu_torch.models.pipeline import FrontEnd
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.parallel import sharding
+
+    _, b1, _ = configs()
+    fe = FrontEnd(b1, capacity=CAPACITY, device=dev)
+    # One generator for the front-end; each ICP run its own of one seed a
+    # frame, so the single-device and sharded runs draw the same numbers.
+    draws = GeneratorDraws(torch.Generator(device=dev).manual_seed(0), dev)
+    icp_draws = lambda k: GeneratorDraws(torch.Generator(device=dev).manual_seed(k), dev)
+    steps = {"8 shards": sharding.make_sharded_icp_step(b1, sharding.get_mesh(SHARDS, device=dev)),
+             "2 x 4": sharding.make_sharded_icp_step_2d(
+                 b1, sharding.get_mesh_2d(2, SHARDS // 2, device=dev))}
+    calls = []
+    real = cuda_nn.nearest
+
+    def recording(query, target, valid, radius=float("inf")):
+        out = real(query, target, valid, radius)
+        calls.append(((query, target, valid, radius), out))
+        return out
+
+    last = None
+    counts = {k: 0 for k in cuda_nn.LAUNCHES}
+    single_ms, step_ms = [], {k: [] for k in steps}
+    for k, scan in enumerate(scans):
+        out = fe.process(scan, draws.frontend(fe.n_draws(k == 0), fe.filtered_capacity), last,
+                         k == 0)
+        if last is not None:
+            t = time.perf_counter()
+            r1, i1, c1, _, _ = icp_loop(b1, out.flat, last, icp_draws(k), None, dev, False)
+            torch.cuda.synchronize(dev)
+            single_ms.append(1e3 * (time.perf_counter() - t))
+            for name, step in steps.items():
+                calls.clear()
+                cuda_nn.reset_launches()
+                cuda_nn.nearest = recording
+                try:
+                    t = time.perf_counter()
+                    r8, i8, c8, _, _ = step(out.flat, last, icp_draws(k))
+                    torch.cuda.synchronize(dev)
+                    step_ms[name].append(1e3 * (time.perf_counter() - t))
+                finally:
+                    cuda_nn.nearest = real
+                launches = dict(cuda_nn.LAUNCHES)
+                differ = sum(int((a != b).sum()) for args, got in calls
+                             for a, b in zip(got, cuda_nn.nearest_plain(*args)))
+                err = float((r8 - r1).abs().max())
+                print(f"  G2 frame {k + 1} {name}: {i8} ICP iterations, {int(c8)} "
+                      f"correspondences, rPose within {err:.2e} of the single device "
+                      f"({i1} iterations, {int(c1)}), nearest {launches['nearest']} launches "
+                      f"of {calls[0][0][0].shape[0]} queries, {differ} outputs differ from "
+                      f"nearest_plain", flush=True)
+                if not (err < G_ICP_ATOL and int(c8) == int(c1)):
+                    raise AssertionError(f"G2 {name}: rPose {err} from the single device, "
+                                         f"correspondences {int(c8)} against {int(c1)}")
+                if launches != {**{n: 0 for n in launches}, "nearest": SHARDS * i8}:
+                    raise AssertionError(f"G2 {name}: launches {launches}, expected nearest "
+                                         f"{SHARDS} x {i8}")
+                if differ:
+                    raise AssertionError(f"G2 {name}: {differ} nearest outputs differ from "
+                                         "the plain version on their shard")
+                if name == "8 shards":
+                    counts = {n: counts[n] + launches[n] for n in counts}
+        last = out.filtered
+    args = calls[0][0]
+    shard_ms = cuda_ms(lambda: cuda_nn.nearest(*args))
+    print(f"G2: icp_loop {', '.join(f'{m:.1f}' for m in single_ms)} ms; "
+          + "; ".join(f"{n} {', '.join(f'{m:.1f}' for m in v)} ms" for n, v in step_ms.items())
+          + f"; nearest on one shard ({args[0].shape[0]} queries, {args[1].shape[0]} targets) "
+          f"{shard_ms:.4f} ms device time", flush=True)
+    return counts
+
+
+def phase_distributed_refine(dev, scans):
+    """Phase 12 G3 (see the module docstring)."""
+    import torch
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.parallel import ba, sharding
+
+    cfg = slice_e_configs(cfgmod, os.path.dirname(os.path.abspath(__file__)))["E3"]
+    odo = Odometry(cfg, capacity=CAPACITY, seed=0, device=dev)
+    for s in scans:
+        odo.process_scan(s)
+    _, (poses, src, ref, nrm, val, k, iters, damping, pairs, _) = odo.ba_window(
+        odo.frame_count - 1)
+    single = lambda: ba.refine_window(poses, src, ref, nrm, val, k, iters, damping, pairs)
+    refine = ba.make_distributed_refine(sharding.get_mesh(SHARDS, device=dev), k, iters,
+                                        damping=damping, pairs=pairs)
+    sharded = lambda: refine(poses, src, ref, nrm, val)
+    err = float((sharded() - single()).abs().max())
+    ms, sharded_ms = cuda_ms(single), cuda_ms(sharded)
+    print(f"G3: window {k}, {len(pairs)} pairs x {src.shape[1]} correspondences, {iters} "
+          f"Gauss-Newton steps: make_distributed_refine on {SHARDS} shards within {err:.2e} of "
+          f"refine_window; {sharded_ms:.3f} ms against {ms:.3f} ms device time", flush=True)
+    if not err < G_BA_ATOL:
+        raise AssertionError(f"G3: the distributed refine is {err} from refine_window")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl(dev, scans, cfg, per_frame):
+    """Phase 12 G5 (see the module docstring). Returns the launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from plo_tpu_torch.ops import cuda_nn
+    from plo_tpu_torch.parallel import distributed, sharding
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0, local_shards=SHARDS, device=dev)
+    try:
+        mesh = distributed.global_mesh()
+        cuda_nn.reset_launches()
+        sodo = ShardedMapOdometry(cfg, mesh, capacity=MAP_CAPACITY, seed=0)
+        poses = _sharded_frames(dev, f"G5 {dist.get_backend()} group of "
+                                f"{dist.get_world_size()}, {mesh.size} shards", sodo, scans)
+        launches = _no_launch("G5", {k: 0 for k in cuda_nn.LAUNCHES})
+        gloo = sharding.Mesh(mesh.devices, dist.new_group(backend="gloo"))
+        try:
+            sharding.all_gather(gloo, [torch.ones(2, device=dev)])
+            refused = False
+        except RuntimeError as err:
+            refused = "gloo" in str(err)
+        print(f"G5: poses {'equal to' if np.array_equal(poses, per_frame) else 'DIFFER from'} "
+              f"G1's per-frame run; a CUDA tensor on a gloo group "
+              f"{'raises' if refused else 'DID NOT raise'}; two NCCL ranks on two cards: not "
+              f"run by this script (tests/test_torch_gpu.py runs them where there are two "
+              f"cards; {torch.cuda.device_count()} here)", flush=True)
+        if not np.array_equal(poses, per_frame):
+            raise AssertionError("G5: the NCCL group's poses differ from G1's")
+        if not refused:
+            raise AssertionError("G5: a CUDA tensor on a gloo group did not raise")
+    finally:
+        distributed.shutdown()
+    return launches
+
+
+def phase_multidevice(dev, scans):
+    """Phase 12 (see the module docstring). Returns {path: launch counts}."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="plo_sharded_")
+    try:
+        g_scans, cfg, per_frame, g1 = phase_sharded_map(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"G1": g1, "G2": phase_sharded_icp(dev, scans)}
+    phase_distributed_refine(dev, scans)
+    out["G5"] = phase_nccl(dev, g_scans, cfg, per_frame)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of plo_tpu_torch on one CUDA card.")
     ap.add_argument("--baseline", default=None, metavar="DIR",
@@ -1631,6 +1932,7 @@ def main(argv=None):
     by_path.update(phase_slice_d(dev, scans, gt))
     by_path.update(phase_slice_e(dev, scans, gt))
     by_path.update(phase_cli(dev))
+    by_path.update(phase_multidevice(dev, scans))
     main_path = {"nearest": "B1", "projected_argmin": "B2",
                  "cylinder_stats": "default", "fps_ranks": "default"}
     for rec in records:

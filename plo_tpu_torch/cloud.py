@@ -21,6 +21,14 @@ class PointCloud:
     eigvals: torch.Tensor    # [P, 3] f32, descending
     valid: torch.Tensor      # [P]    bool
 
+    @staticmethod
+    def zeros(capacity: int, device=None) -> "PointCloud":
+        """An empty cloud (every row invalid) of `capacity` rows."""
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+        return PointCloud(xyz=z(capacity, 3), normal=z(capacity, 3), intensity=z(capacity),
+                          curvature=z(capacity), eigvals=z(capacity, 3),
+                          valid=torch.zeros(capacity, dtype=torch.bool, device=device))
+
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]

@@ -66,7 +66,12 @@ def odometry_state_from_numpy(odo: Odometry, *, last_filtered: Mapping[str, np.n
     cloud) and the f32 world pose (its `_world_dev`), and with bundle
     adjustment the filtered clouds its records match against (its
     `_ba_clouds`) and the records {k: (rec_prev, rec_skip or None)}, each
-    record a tuple of arrays (s, y, n, valid) (its `_ba_corr`)."""
+    record a tuple of arrays (s, y, n, valid) (its `_ba_corr`). A
+    ShardedMapOdometry is refused: its map is the shard store, which
+    checkpoint.load_sharded restores."""
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+    if isinstance(odo, ShardedMapOdometry):
+        raise TypeError("a ShardedMapOdometry's state loads with checkpoint.load_sharded")
     dev = odo.device
     odo.last_filtered = cloud_from_numpy(last_filtered, dev)
     odo.cloud_queue = deque(cloud_from_numpy(c, dev) for c in cloud_queue)

@@ -50,7 +50,7 @@ from plo_tpu_torch.models.pipeline import (GRID16_SCALE, STATS_KEYS, FrontEnd,
                                            FrontEndOutput, grid_to_device)
 from plo_tpu_torch.ops import matching, tensor_voting, voxel
 from plo_tpu_torch.ops.undistort import undistort_cloud
-from plo_tpu_torch.parallel import ba as ba_ops
+from plo_tpu_torch.parallel import ba as ba_ops, sharding
 from plo_tpu_torch.solvers.gauss_newton import solve_gauss_newton
 from plo_tpu_torch.solvers.gnc import ALGORITHMS as TEASER_ALGORITHMS, solve_gnc_tls
 from plo_tpu_torch.solvers.icp_umeyama import solve_icp_point_to_point
@@ -164,10 +164,7 @@ def _check_supported(cfg: Config) -> None:
 
 
 def _zeros_cloud(capacity: int, device) -> PointCloud:
-    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
-    return PointCloud(xyz=z(capacity, 3), normal=z(capacity, 3), intensity=z(capacity),
-                      curvature=z(capacity), eigvals=z(capacity, 3),
-                      valid=torch.zeros(capacity, dtype=torch.bool, device=device))
+    return PointCloud.zeros(capacity, device)
 
 
 def _map_fields(fn, *clouds: PointCloud) -> PointCloud:
@@ -269,13 +266,22 @@ def _solve_step(cfg: Config, src_xyz: torch.Tensor, res, n_corr: torch.Tensor, d
 
 
 def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose,
-             device: torch.device, map_mode: bool):
+             device: torch.device, map_mode: bool, mesh=None, candidates=None):
     """The ICP loop of plo_tpu.models.odometry._make_icp_step: the sampled
     cloud `flat` against `target` from `init_pose` (None: the identity),
     on `device`, drawing from `draws`. Returns (rPose [4, 4] f32 on the
     device, iterations, correspondences, converged (a device bool), DRPM
     probabilities [6], ones for solvers without a DRPM stage); in map mode
-    the rPose is the world pose."""
+    the rPose is the world pose. With a `mesh` (parallel/sharding.py,
+    `device` its first shard's), the source is sharded on points over it and
+    the target replicated: each shard matches its slice, and the rows are
+    gathered back in source order, so the solve sees the single-device rows
+    (plo_tpu.parallel.sharding.make_sharded_icp_step). With `candidates`,
+    the [Q, k] rows (points, normals, normal validity, presence) that a
+    sharded map's search returned at `init_pose`
+    (parallel/map_store.py knn_gather), `target` is unused and every
+    iteration evaluates those frozen rows at the current pose
+    (plo_tpu.parallel.odometry._make_candidate_icp)."""
     lo = cfg.laser_odometry
     sv = lo.solve_method
     imls_cfg = lo.matching_method.imls
@@ -283,7 +289,8 @@ def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose
     cap = _flat_query_cap(cfg)
     if cap is not None and flat.capacity > cap:
         flat = flat.slice(cap)
-    tgt_normal, tgt_normal_ok = prepare_target(cfg, target, map_mode)
+    tgt_normal, tgt_normal_ok = ((None, None) if candidates is not None else
+                                 prepare_target(cfg, target, map_mode))
     # The map's normals live in the world frame, so the source normals
     # are rotated for the angle gate whatever transform_normal says.
     transform_normal = lo.transform_normal or map_mode
@@ -302,36 +309,59 @@ def icp_loop(cfg: Config, flat: PointCloud, target: PointCloud, draws, init_pose
     # On a map searched through the grid hash, only the frozen search
     # takes the grid; hybrid refresh is off there (odometry.py:243).
     euclid = is_imls and not imls_cfg.use_projected_distance.enabled and not voting
-    frozen = euclid and not lo.refresh_correspondences
-    hybrid = (euclid and lo.refresh_correspondences and lo.refresh_motion_threshold > 0.0
-              and not grid)
+    frozen = candidates is not None or (euclid and not lo.refresh_correspondences)
+    hybrid = (candidates is None and euclid and lo.refresh_correspondences
+              and lo.refresh_motion_threshold > 0.0 and not grid)
+    # (source, target, target normals, their validity) of each shard.
+    if mesh is None:
+        parts = [(flat, target, tgt_normal, tgt_normal_ok)]
+    else:
+        parts = list(zip(sharding.shard_cloud(flat, mesh),
+                         *(sharding.replicate(x, mesh) for x in (target, tgt_normal,
+                                                                  tgt_normal_ok))))
+
+    def search(src_xyz, tgt):
+        if grid:
+            mp = lo.map
+            return matching.imls_search_grid(src_xyz, tgt, imls_cfg, mp.grid_cell,
+                                             mp.grid_m, mp.grid_buckets)
+        return matching.imls_search(src_xyz, tgt, imls_cfg)
+
+    def merged(srcs, results):
+        """The moved source and its match, gathered over the shards."""
+        if mesh is None:
+            return srcs[0].xyz, results[0]
+        gather = lambda rows: sharding.all_gather(mesh, rows)[:flat.capacity]
+        return gather([s.xyz for s in srcs]), matching.MatchResult(
+            y=gather([r.y for r in results]), normal=gather([r.normal for r in results]),
+            valid=gather([r.valid for r in results]), counters={})  # the loop reads none
 
     rpose = (torch.eye(4, dtype=torch.float32, device=device)
              if init_pose is None else init_pose)
-    if frozen:
-        src0 = geo.transform_points(rpose, flat.xyz)
-        if grid:
-            mp = lo.map
-            cache = matching.imls_search_grid(src0, target, imls_cfg, mp.grid_cell,
-                                              mp.grid_m, mp.grid_buckets)
-        else:
-            cache = matching.imls_search(src0, target, imls_cfg)
+    if candidates is not None:
+        caches = [candidates]
+    elif frozen:
+        caches = [search(geo.transform_points(rpose.to(f.xyz.device), f.xyz), t)
+                  for f, t, _, _ in parts]
     moved = np.float32(np.inf)  # inf -> search at iteration 0
     i = 0
     n_corr = torch.zeros((), dtype=torch.int64, device=device)
     converged = torch.zeros((), dtype=torch.bool, device=device)
     probs = torch.ones(6, dtype=torch.float32, device=device)
     while i < sv.iterations:
-        src = _moved(flat, rpose, transform_normal)
-        src_xyz = src.xyz
+        srcs = [_moved(f, rpose.to(f.xyz.device), transform_normal) for f, _, _, _ in parts]
         if frozen or hybrid:
             if hybrid and moved >= lo.refresh_motion_threshold:
-                cache = matching.imls_search(src_xyz, target, imls_cfg)
+                caches = [matching.imls_search(s.xyz, t, imls_cfg)
+                          for s, (_, t, _, _) in zip(srcs, parts)]
                 moved = np.float32(0.0)
-            res = matching.imls_project_cached(src, target, imls_cfg, cache,
-                                               tgt_normal, tgt_normal_ok)
+            results = [matching.imls_project_cached(s, t, imls_cfg, c, tn, tok)
+                       if candidates is None else
+                       matching.imls_project_candidates(s, *c, imls_cfg)
+                       for s, (_, t, tn, tok), c in zip(srcs, parts, caches)]
         else:
-            res = match_once(cfg, src, target, tgt_normal, tgt_normal_ok)
+            results = [match_once(cfg, s, t, tn, tok) for s, (_, t, tn, tok) in zip(srcs, parts)]
+        src_xyz, res = merged(srcs, results)
         n_corr = res.valid.sum()
         delta, converged, done, probs = _solve_step(cfg, src_xyz, res, n_corr, draws, i, probs)
         rpose = delta @ rpose
@@ -594,18 +624,29 @@ class Odometry:
         if lo.undistort and target is not None:
             filtered = undistort_cloud(filtered, self._last_rel)
         if self._map_mode:
-            if self._device_map is None:
-                self._device_map = _zeros_cloud(lo.map.capacity, dev)
-            world = dataclasses.replace(
-                filtered, xyz=geo.transform_points(self._world_dev, filtered.xyz),
-                normal=geo.rotate_vectors(self._world_dev, filtered.normal))
-            self._device_map = voxel.voxel_map_insert(self._device_map, world, lo.map.voxel_size,
-                                                      self._world_dev[:3, 3], lo.map.n_buckets)
+            self._map_insert(filtered)
         else:
             self._model_window(filtered)
         return torch.cat([rpose.reshape(-1), torch.full((1,), float(iters), device=dev),
                           n_corr.reshape(1).to(torch.float32), probs,
                           torch.stack([fe.stats[k] for k in STATS_KEYS]).to(torch.float32)])
+
+    def _map_target(self) -> PointCloud:
+        """The model a map-mode frame after the first matches against: the
+        device map."""
+        return self._device_map
+
+    def _map_insert(self, filtered: PointCloud) -> None:
+        """The filtered cloud moved to the world frame at the world pose and
+        inserted into the device map (voxel_map_insert)."""
+        mp = self.cfg.laser_odometry.map
+        if self._device_map is None:
+            self._device_map = _zeros_cloud(mp.capacity, self.device)
+        world = dataclasses.replace(
+            filtered, xyz=geo.transform_points(self._world_dev, filtered.xyz),
+            normal=geo.rotate_vectors(self._world_dev, filtered.normal))
+        self._device_map = voxel.voxel_map_insert(self._device_map, world, mp.voxel_size,
+                                                  self._world_dev[:3, 3], mp.n_buckets)
 
     def _pack_grid(self, raw_pts: np.ndarray) -> np.ndarray:
         """The grid16 raster [H, W] uint16 of one raw scan."""
@@ -631,7 +672,7 @@ class Odometry:
                                             self.last_filtered, first)
         else:
             fe = self.frontend.process(raw_pts, scores, self.last_filtered, first)
-        target = None if first else (self._device_map if self._map_mode else self._target())
+        target = None if first else (self._map_target() if self._map_mode else self._target())
         row = self._advance(fe, target, draws)
         self.last_filtered = fe.filtered
         self._pending.append((self.frame_count, row[None], None))
@@ -715,7 +756,7 @@ class Odometry:
                 if self.transfer == "int16":
                     raw = raw.to(torch.float32) * self.TRANSFER_QUANT_SCALE
                 fe = self.frontend.run(raw, int(nvs[j]), scores, last, False)
-            target = (self._device_map if self._map_mode else
+            target = (self._map_target() if self._map_mode else
                       _map_fields(lambda a: a.reshape((-1,) + a.shape[2:]), self._device_window))
             prior = eye if self._last_rel is None else self._last_rel
             rows.append(self._advance(fe, target, d))

@@ -177,7 +177,10 @@ def imls_project(source: PointCloud, target: PointCloud, cfg: IMLSConfig,
 
 
 def _evaluate(source, npts, nnrm, n_ok, near_d2, found, min_dist, n_anchor,
-              anchor_normal_ok, cfg: IMLSConfig) -> MatchResult:
+              anchor_normal_ok, cfg: IMLSConfig, h2=None) -> MatchResult:
+    """The IMLS gates, bandwidth and height at the source's current
+    positions; the anchor is rejected beyond sqrt(h2) (default: h squared
+    in f32, as a traced gate)."""
     ang = cfg.normal_angle_constraint
     if ang.enabled:
         anchor_angle_ok = _angle_deg(source.normal, n_anchor) <= ang.angle_diff_threshold
@@ -188,7 +191,7 @@ def _evaluate(source, npts, nnrm, n_ok, near_d2, found, min_dist, n_anchor,
     diff = source.xyz[:, None, :] - npts
     height, enough = _height(diff, nnrm, n_ok, near_d2, cfg.search_number)
     stages = [
-        ("too_far", found & (min_dist <= cuda_nn.f32_square(cfg.h))),
+        ("too_far", found & (min_dist <= (cuda_nn.f32_square(cfg.h) if h2 is None else h2))),
         ("invalid_normal", anchor_normal_ok),
         ("normal_constraint", anchor_angle_ok),
         ("mls_fail", enough),
@@ -223,21 +226,42 @@ def imls_search_grid(src_xyz: torch.Tensor, target: PointCloud, cfg: IMLSConfig,
 def imls_project_cached(source: PointCloud, target: PointCloud, cfg: IMLSConfig,
                         cache, target_normal=None, target_normal_ok=None) -> MatchResult:
     """IMLS projection against a frozen candidate set from `imls_search`
-    (plo_tpu.ops.matching._imls_eval_cached + _imls_eval_gathered): distances,
-    anchor, gates, bandwidth and height come from the CURRENT source pose,
-    only the candidate identities are frozen. At the search pose it equals
-    `imls_project`."""
+    (plo_tpu.ops.matching._imls_eval_cached): the candidates' rows gathered
+    from the target, then evaluated as `_evaluate_gathered` does. At the
+    search pose it equals `imls_project`."""
     tn = target.normal if target_normal is None else target_normal
     tok = target.valid if target_normal_ok is None else target.valid & target_normal_ok
     nidx, nfound = cache
     nidx_c = nidx.clamp(0, target.capacity - 1)
-    npts = target.xyz[nidx_c]
-    nnrm = tn[nidx_c]
-    neighbor_normal_ok = tok[nidx_c]
+    return _evaluate_gathered(source, target.xyz[nidx_c], tn[nidx_c], tok[nidx_c], nfound,
+                              cuda_nn.f32_square(cfg.r), cuda_nn.f32_square(cfg.h), cfg)
 
+
+def imls_project_candidates(source: PointCloud, cand_xyz, cand_normal, cand_normal_ok,
+                            cand_present, cfg: IMLSConfig) -> MatchResult:
+    """IMLS projection against gathered candidate rows ([S, k, 3] points and
+    normals, [S, k] masks): the sharded map's path, whose distributed search
+    returns the candidates themselves (parallel/map_store.py knn_gather), so
+    the evaluation never touches the whole map
+    (plo_tpu.ops.matching.imls_project_candidates). plo_tpu squares r and h
+    there as Python numbers of its config, in double before the f32 compare,
+    where the cached path squares them in f32; so does this."""
+    if cfg.use_projected_distance.enabled:
+        raise ValueError("candidates mode is euclidean-only")
+    return _evaluate_gathered(source, cand_xyz, cand_normal, cand_normal_ok, cand_present,
+                              float(np.float32(cfg.r * cfg.r)),
+                              float(np.float32(cfg.h * cfg.h)), cfg)
+
+
+def _evaluate_gathered(source, npts, nnrm, neighbor_normal_ok, cand_present, r2: float,
+                       h2: float, cfg: IMLSConfig) -> MatchResult:
+    """IMLS over gathered candidates (plo_tpu.ops.matching._imls_eval_gathered):
+    distances, the radius re-gate (d2 <= r2), the anchor (the nearest
+    present candidate), the h gate (h2), bandwidth and height all from the
+    CURRENT source pose; only the candidate identities are frozen."""
     diff = source.xyz[:, None, :] - npts
     d2_euclid = (diff * diff).sum(-1)
-    present = nfound & (d2_euclid <= cuda_nn.f32_square(cfg.r))   # radius re-gate
+    present = cand_present & (d2_euclid <= r2)   # radius re-gate
     d2_masked = torch.where(present, d2_euclid, math.inf)
     j_star = torch.argmin(d2_masked, dim=1, keepdim=True)
     found = present.any(1)
@@ -247,4 +271,4 @@ def imls_project_cached(source: PointCloud, target: PointCloud, cfg: IMLSConfig,
                         & torch.isfinite(n_anchor).all(-1))
     near_d2 = torch.sort(d2_masked, dim=1).values
     return _evaluate(source, npts, nnrm, present & neighbor_normal_ok, near_d2,
-                     found, min_dist, n_anchor, anchor_normal_ok, cfg)
+                     found, min_dist, n_anchor, anchor_normal_ok, cfg, h2)

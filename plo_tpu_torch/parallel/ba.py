@@ -1,5 +1,5 @@
-"""Windowed bundle adjustment on one device (the port of
-plo_tpu/parallel/ba.py without its sharded form, make_distributed_refine).
+"""Windowed bundle adjustment, on one device and sharded (the port of
+plo_tpu/parallel/ba.py).
 
 A window of K poses is refined by Gauss-Newton over recorded point-to-plane
 correspondences between frame pairs (i, j):
@@ -14,6 +14,12 @@ so the float32 sums run in the same order; the 6(K-1) system is solved with
 torch.linalg.solve_ex, which leaves the result on the device (torch.linalg.
 solve checks for errors by waiting for the host on CUDA). `refine_window`
 makes no host sync.
+
+The sharded form (`make_distributed_refine`) cuts the correspondences over a
+mesh's shards on their point axis: each shard assembles its partial normal
+equations, which are summed over the shards in shard order (sharding.psum,
+one 6(K-1) system a Gauss-Newton step), and the solve and the pose update run
+replicated.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from plo_tpu_torch import geometry as geo
+from plo_tpu_torch.parallel import sharding
 
 
 def _residual_jacobian(T_rel, src, ref, normal, valid):
@@ -70,13 +77,44 @@ def refine_window(poses, src, ref, normal, valid, k_window: int, iterations: int
     """Gauss-Newton refinement of a K-pose window: `iterations` steps of
     (H + damping I) delta = -g and T_i <- T_i exp(delta_i) for i = 1..K-1.
     Arguments as _assemble's; returns the refined poses [K, 4, 4] f32."""
-    dof = 6 * (k_window - 1)
-    eye = torch.eye(dof, dtype=torch.float32, device=poses.device)
     for _ in range(iterations):
         H, g = _assemble(poses, src, ref, normal, valid, k_window, pairs, huber_delta)
-        delta = -torch.linalg.solve_ex(H + damping * eye, g)[0]
-        poses = torch.stack([poses[0]] + [
-            poses[i] @ geo.make_se3(geo.exp_so3(delta[6 * (i - 1):6 * (i - 1) + 3]),
-                                    delta[6 * (i - 1) + 3:6 * i])
-            for i in range(1, k_window)])
+        poses = _update(poses, H, g, k_window, damping)
     return poses
+
+
+def _update(poses, H, g, k_window: int, damping: float) -> torch.Tensor:
+    """One Gauss-Newton step: (H + damping I) delta = -g, then
+    T_i <- T_i exp(delta_i) for i = 1..K-1."""
+    eye = torch.eye(H.shape[0], dtype=torch.float32, device=poses.device)
+    delta = -torch.linalg.solve_ex(H + damping * eye, g)[0]
+    return torch.stack([poses[0]] + [
+        poses[i] @ geo.make_se3(geo.exp_so3(delta[6 * (i - 1):6 * (i - 1) + 3]),
+                                delta[6 * (i - 1) + 3:6 * i])
+        for i in range(1, k_window)])
+
+
+def make_distributed_refine(mesh: "sharding.Mesh", k_window: int, iterations: int = 5,
+                            damping: float = 1e-6,
+                            pairs: Optional[Sequence[Tuple[int, int]]] = None):
+    """refine_window with the correspondences sharded over the mesh's point
+    axis: each shard's (H, g) summed over the shards in shard order, the
+    solve and update replicated (plo_tpu.parallel.ba.make_distributed_refine).
+    Returns refine(poses, src, ref, normal, valid) -> refined poses [K, 4, 4]
+    on mesh.device."""
+
+    def refine(poses, src, ref, normal, valid):
+        shards = [sharding.shard_rows(mesh, x.transpose(0, 1))
+                  for x in (src, ref, normal, valid)]
+        local = [[x[j].transpose(0, 1) for x in shards] for j in range(mesh.n_local)]
+        poses = poses.to(mesh.device)
+        for _ in range(iterations):
+            pose_parts = sharding.replicate(poses, mesh)
+            systems = [_assemble(p, *part, k_window, pairs)
+                       for p, part in zip(pose_parts, local)]
+            H = sharding.psum(mesh, [h for h, _ in systems])
+            g = sharding.psum(mesh, [g for _, g in systems])
+            poses = _update(poses, H, g, k_window, damping)
+        return poses
+
+    return refine

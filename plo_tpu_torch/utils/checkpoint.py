@@ -15,6 +15,12 @@ which the port cannot use. The port stores its torch.Generator's state under
 device repeats the uninterrupted run's draws. A file written by plo_tpu
 loads (its `key` and `key_counter` are ignored): the draws after it then
 come from the port's generator as the Odometry was constructed.
+
+`save_sharded` and `load_sharded` do the same for the sharded map odometry
+(parallel/odometry.py), with plo_tpu's keys: the map is saved as one flat
+shard-major cloud and partitioned again by the loading odometry's own block
+hash, so a run resumes on another number of shards (elastic resume, e.g. 8
+to 4).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from plo_tpu_torch.cloud import PointCloud
 
 if TYPE_CHECKING:
     from plo_tpu_torch.models.odometry import Odometry
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
 
 FIELDS = ("xyz", "normal", "intensity", "curvature", "eigvals", "valid")
 RECORD = ("s", "y", "n", "v")
@@ -42,9 +49,17 @@ def _put_cloud(state: dict, prefix: str, cloud: PointCloud) -> None:
         state[f"{prefix}_{field}"] = _np(getattr(cloud, field))
 
 
+def _not_sharded(odo: "Odometry") -> None:
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+    if isinstance(odo, ShardedMapOdometry):
+        raise TypeError("a ShardedMapOdometry saves with save_sharded and loads with "
+                        "load_sharded")
+
+
 def save(odo: "Odometry", path: str):
     """Write `odo`'s state to `path` (a compressed .npz), after draining its
     pending frames and materializing a batch's device window."""
+    _not_sharded(odo)
     odo._drain()
     odo._sync_queue()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -90,6 +105,7 @@ def load(odo: "Odometry", path: str):
     with the same config; returns it. The trajectory before the snapshot is
     not restored, except the BA window's tail."""
     from plo_tpu_torch.models.odometry import OdometryFrame
+    _not_sharded(odo)
 
     data = np.load(path)
     dev = odo.device
@@ -129,3 +145,58 @@ def load(odo: "Odometry", path: str):
                         if f"ba_k{k}_s_s" in data else None)
             odo._ba_corr[k] = (rec_prev, rec_skip)
     return odo
+
+
+def save_sharded(sodo: "ShardedMapOdometry", path: str):
+    """Write a ShardedMapOdometry's state to `path`: the float64 pose, the
+    frame count, the generator's state, the world and last relative poses,
+    the last filtered cloud and the whole map as one flat shard-major cloud
+    (gathered from every process; the voxel dedupe state is the map's own
+    content, so nothing of the shard layout is needed). Every process of
+    the mesh calls it; the first writes."""
+    sodo._drain()
+    flat = sodo.store.global_cloud()
+    if not sodo.mesh.is_writer:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    state = {
+        "prev_pose": sodo.prev_pose,
+        "frame_count": np.asarray(sodo.frame_count),
+        "torch_generator_state": sodo.generator.get_state().numpy(),
+        "world_pose": _np(sodo._world_dev),
+    }
+    if sodo._last_rel is not None:
+        state["last_rel"] = _np(sodo._last_rel)
+    _put_cloud(state, "map", flat)
+    if sodo.last_filtered is not None:
+        _put_cloud(state, "last", sodo.last_filtered)
+    np.savez_compressed(path, **state)
+
+
+def load_sharded(sodo: "ShardedMapOdometry", path: str):
+    """Restore a sharded snapshot (the port's or plo_tpu's) into a
+    ShardedMapOdometry of the same config on any mesh: the flat map is
+    partitioned by this odometry's block hash over its shards (exact: blocks
+    are voxel-aligned, so per-shard dedupe carries over). plo_tpu's
+    key_counter is ignored; returns sodo."""
+    from plo_tpu_torch.parallel.map_store import partition_cloud
+
+    data = np.load(path)
+    dev = sodo.device
+    tensor = lambda key: torch.as_tensor(data[key], device=dev)
+    cloud = lambda prefix: PointCloud(**{f: tensor(f"{prefix}_{f}") for f in FIELDS})
+
+    sodo.prev_pose = data["prev_pose"]
+    sodo.frame_count = int(data["frame_count"])
+    if "torch_generator_state" in data:
+        sodo.generator.set_state(torch.from_numpy(data["torch_generator_state"]))
+    sodo._pending = []
+    part, _ = partition_cloud(cloud("map"), sodo.n_shards, sodo.store.per_shard,
+                              base_cell=sodo._base_cell, block_factor=sodo._block_factor)
+    sodo.store.cloud = sodo.store.local_slice(part)
+    sodo._world_dev = tensor("world_pose")
+    if "last_rel" in data:
+        sodo._last_rel = tensor("last_rel")
+    if "last_xyz" in data:
+        sodo.last_filtered = cloud("last")
+    return sodo

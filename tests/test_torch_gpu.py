@@ -13,6 +13,7 @@ exactly (the same elementwise f32 operations on both devices); a default
 frame's poses on the card within 2 mm / 1e-4 rad of the CPU's (f32
 reductions and transcendental functions round differently on the two
 devices; the bound of the resume test in tests/test_torch_odometry.py)."""
+import dataclasses
 import math
 
 import numpy as np
@@ -892,3 +893,151 @@ def test_gpu_cli_matches_the_cpu(cuda, tmp_path, monkeypatch):
     # Quaternions (q and -q are one rotation) within 1e-4 rad: |dq| ~ angle / 2.
     dq = np.minimum(np.abs(gpu[:, 4:] - cpu[:, 4:]), np.abs(gpu[:, 4:] + cpu[:, 4:]))
     assert dq.max() < 5e-5, dq
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_map_odometry_matches_the_cpu(cuda):
+    """The sharded map odometry with 8 shards on cuda:0 against the same
+    run on 8 CPU shards, both on the same draws (_SharedDraws: a CUDA
+    generator draws other numbers than the CPU's), on the worker's scans and
+    config solved by LS, as tests/test_torch_sharded_odometry.py's parity run
+    is (5 frames): poses within 2 mm / 1e-4 rad, and batched on the card
+    equal to per frame."""
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.parallel import get_mesh
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+    from plo_tpu_torch.parallel.worker import dist_config, dist_scans
+    cfg = dist_config()
+    cfg = dataclasses.replace(cfg, laser_odometry=dataclasses.replace(
+        cfg.laser_odometry, solve_method=cfgmod.SolveConfig(method="LS", iterations=20)))
+    scans, _ = dist_scans(5)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        sodo = ShardedMapOdometry(cfg, get_mesh(8, device=dev), capacity=16384, seed=0)
+        for i, s in enumerate(scans):
+            sodo.process_scan(s, draws=_SharedDraws(i, dev))
+        runs[dev.type] = sodo.poses()
+    np.testing.assert_allclose(runs["cuda"][:, :3, 3], runs["cpu"][:, :3, 3], atol=2e-3)
+    np.testing.assert_allclose(runs["cuda"][:, :3, :3], runs["cpu"][:, :3, :3], atol=1e-4)
+    b = ShardedMapOdometry(cfg, get_mesh(8, device=cuda), capacity=16384, seed=0,
+                           defer_fetch=True)
+    b.process_scans(scans, batch=4, draws=[_SharedDraws(i, cuda) for i in range(len(scans))])
+    np.testing.assert_array_equal(b.poses(), runs["cuda"])
+
+
+@pytest.mark.gpu
+def test_gpu_knn_gather_matches_the_cpu(gen, cuda):
+    """The sharded map store's search on 8 shards on cuda:0 against the CPU:
+    candidates, masks and d2 exactly, ties between shards included."""
+    from plo_tpu_torch.cloud import PointCloud
+    from plo_tpu_torch.parallel import get_mesh
+    from plo_tpu_torch.parallel.map_store import ShardedMapStore
+    xyz = ((gen.random((8192, 3)) - 0.5) * 100).astype(np.float32)
+    xyz[:6] = np.float32([10, 10, 1]) + 2 * np.concatenate([np.eye(3), -np.eye(3)])
+    normal = gen.normal(size=xyz.shape).astype(np.float32)
+    normal[::5] = 0.0
+    q = ((gen.random((2000, 3)) - 0.5) * 100).astype(np.float32)
+    q[0] = [10, 10, 1]
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        cloud = dataclasses.replace(PointCloud.zeros(len(xyz), dev),
+                                    xyz=torch.from_numpy(xyz).to(dev),
+                                    normal=torch.from_numpy(normal).to(dev),
+                                    valid=torch.ones(len(xyz), dtype=torch.bool, device=dev))
+        store = ShardedMapStore(get_mesh(8, device=dev), per_shard=2048)
+        store.set_model(cloud)
+        out[name] = [t.cpu() for t in store.knn_gather(torch.from_numpy(q).to(dev), 20, 5.0)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert int(out["cpu"][4].sum()) > 1000
+
+
+@pytest.mark.gpu
+def test_gpu_cuda_tensor_on_a_gloo_group_raises(cuda):
+    """The collectives never stage a CUDA tensor through the host for gloo."""
+    import socket
+    import torch.distributed as dist
+    from plo_tpu_torch.parallel import sharding
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = sharding.get_mesh(2, device=cuda, group=dist.group.WORLD)
+        with pytest.raises(RuntimeError, match="gloo"):
+            sharding.all_gather(mesh, [torch.ones(3, device=cuda)] * 2)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_icp_step_launches_nearest_once_a_shard(cuda):
+    """configs/aloam_kitti00.json's plane-ICP through the sharded step with
+    8 shards on cuda:0: nearest launched 8 times an iteration, the pose
+    equal to the single-device loop's."""
+    from plo_tpu_torch import config as cfgmod
+    from plo_tpu_torch.cloud import PointCloud
+    from plo_tpu_torch.models.odometry import GeneratorDraws, icp_loop
+    from plo_tpu_torch.parallel import sharding
+    cfg = cfgmod.Config(laser_odometry=cfgmod.LaserOdometryConfig(
+        matching_method=cfgmod.MatchingConfig(method="plane_ICP"),
+        solve_method=cfgmod.SolveConfig(method="LS", iterations=5)))
+    clouds = []
+    for n, h in ((2000, 0.05), (16384, 0.0)):
+        xyz = np.full((n, 3), h, np.float32)
+        xyz[:, :2] = (np.random.default_rng(n).random((n, 2)) - 0.5) * 30
+        normal = np.tile(np.float32([0, 0, 1]), (n, 1))
+        clouds.append(dataclasses.replace(
+            PointCloud.zeros(n, cuda), xyz=torch.from_numpy(xyz).to(cuda),
+            normal=torch.from_numpy(normal).to(cuda),
+            valid=torch.ones(n, dtype=torch.bool, device=cuda)))
+    draws = lambda: GeneratorDraws(torch.Generator(device=cuda).manual_seed(0), cuda)
+    one = icp_loop(cfg, *clouds, draws(), None, cuda, False)
+    cuda_nn.reset_launches()
+    step = sharding.make_sharded_icp_step(cfg, sharding.get_mesh(8, device=cuda))
+    r8, i8, c8, _, _ = step(*clouds, draws())
+    torch.cuda.synchronize()
+    assert cuda_nn.LAUNCHES["nearest"] == 8 * i8
+    assert torch.equal(r8, one[0]) and int(c8) == int(one[2])
+
+
+@pytest.mark.gpu
+def test_gpu_two_nccl_ranks_match_one_process(cuda, tmp_path):
+    """Two processes of `python -m plo_tpu_torch.parallel.worker`, one card
+    each, 4 shards each, joined over NCCL, against the same 8 shards driven
+    by one process on cuda:0: equal poses. Needs two cards."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one NCCL rank a card")
+    from plo_tpu_torch.parallel import get_mesh
+    from plo_tpu_torch.parallel.odometry import ShardedMapOdometry
+    from plo_tpu_torch.parallel.worker import dist_config, dist_scans
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "poses.npy")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "plo_tpu_torch.parallel.worker", "--process-id", str(pid),
+         "--num-processes", "2", "--port", str(port), "--local-devices", "4", "--frames", "8",
+         "--out", out], cwd=repo, env={**os.environ, "PYTHONPATH": repo},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    assert "(cuda:0)" in logs[0] and "(cuda:1)" in logs[1], logs
+    scans, _ = dist_scans(8)
+    one = ShardedMapOdometry(dist_config(), get_mesh(8, device=torch.device("cuda", 0)),
+                             capacity=8192, seed=0)
+    for s in scans:
+        one.process_scan(s)
+    np.testing.assert_array_equal(np.load(out), one.poses())
